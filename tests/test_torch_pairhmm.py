@@ -1,0 +1,200 @@
+"""The port's PairHMM (elprep_tpu_torch/ops/pairhmm.py, pairhmm_cuda.py)
+held against the JAX package: the f64 oracle, the Pallas kernel in
+interpret mode and the lax.scan formulation, on the mixed-length,
+N-heavy cases of tests/test_pairhmm.py. Inputs come from numpy seeds.
+
+Tolerances: 5e-4 log10 against the f64 oracle (the bound
+tests/test_pairhmm.py holds the Pallas kernel to); 1e-5 log10 against the
+JAX f32 paths, which round the same recurrence in another order (the
+Pallas kernel sums (I2+D2)*i2m) or under XLA's CPU codegen.
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from elprep_tpu.ops import pairhmm as jax_pairhmm
+from elprep_tpu.ops import pairhmm_pallas as jax_pallas
+from elprep_tpu_torch.ops import pairhmm
+from elprep_tpu_torch.ops import pairhmm_cuda as pc
+
+torch.set_num_threads(1)
+
+_BASES = np.frombuffer(b"ACGT", np.uint8)
+
+
+def _mixed_case(seed=9):
+    """Mixed read/hap lengths with 'N' on both sides
+    (tests/test_pairhmm.py:107-129), every read against every hap."""
+    rng = np.random.RandomState(seed)
+    reads = []
+    for lr in (17, 33, 48):
+        seq = rng.choice(_BASES, lr).tobytes()
+        qual = rng.randint(2, 42, lr).astype(np.uint8)
+        reads.append((seq, qual, 60))
+    haps = [rng.choice(_BASES, lh).tobytes() for lh in (40, 67, 129)]
+    reads[1] = (reads[1][0][:5] + b"N" + reads[1][0][6:], reads[1][1], 60)
+    haps[0] = haps[0][:10] + b"NN" + haps[0][12:]
+    pair_r = np.repeat(np.arange(len(reads)), len(haps))
+    pair_h = np.tile(np.arange(len(haps)), len(reads))
+    return reads, haps, pair_r, pair_h
+
+
+def _n_heavy_case(seed=21, n_reads=6, n_haps=4):
+    """Reads cut from the haplotypes with errors and many 'N' bases, MAPQ
+    below some quals (modified qualities), lengths 1..90."""
+    rng = np.random.RandomState(seed)
+    haps = []
+    for _ in range(n_haps):
+        h = rng.choice(_BASES, rng.randint(60, 140))
+        h[rng.rand(len(h)) < 0.1] = ord("N")
+        haps.append(h.tobytes())
+    reads = []
+    for k in range(n_reads):
+        src = np.frombuffer(haps[k % n_haps], np.uint8)
+        lr = [1, 2, 31, 32, 33, 90][k % 6]
+        st = rng.randint(0, len(src) - lr + 1)
+        seq = src[st : st + lr].copy()
+        seq[rng.rand(lr) < 0.2] = ord("N")
+        seq[rng.rand(lr) < 0.05] = rng.choice(_BASES)
+        reads.append((seq.tobytes(), rng.randint(0, 45, lr).astype(np.uint8),
+                      int(rng.randint(10, 61))))
+    pair_r = np.repeat(np.arange(n_reads), n_haps)
+    pair_h = np.tile(np.arange(n_haps), n_reads)
+    return reads, haps, pair_r, pair_h
+
+
+_CASES = {"mixed": _mixed_case, "n_heavy": _n_heavy_case}
+
+
+def _f64(reads, haps, pair_r, pair_h):
+    return np.array([jax_pairhmm.pairhmm_f64_diag(
+        reads[r][0], reads[r][1], reads[r][2], haps[h])
+        for r, h in zip(pair_r, pair_h)])
+
+
+def _plain_log10(reads, haps, pair_r, pair_h):
+    batch = pc.pack_pairs(reads, haps, pair_r, pair_h)
+    acc = pc.pairhmm_forward_plain(batch, pc.default_tables("cpu")).numpy()
+    return np.log10(acc.astype(np.float64)) - pc.F32_INITIAL_POW * np.log10(2.0)
+
+
+@pytest.mark.parametrize("case", sorted(_CASES))
+def test_plain_matches_f64_oracle(case):
+    reads, haps, pair_r, pair_h = _CASES[case]()
+    got = _plain_log10(reads, haps, pair_r, pair_h)
+    want = _f64(reads, haps, pair_r, pair_h)
+    assert np.all(np.isfinite(got))
+    assert np.all(np.abs(got - want) < 5e-4), np.abs(got - want).max()
+
+
+@pytest.mark.parametrize("case", sorted(_CASES))
+def test_logl_pairs_matches_f64_oracle(case):
+    """The pipeline entry (with its f64 rescue) on the CPU."""
+    reads, haps, pair_r, pair_h = _CASES[case]()
+    got = pairhmm.pairhmm_logl_pairs(reads, haps, pair_r, pair_h, device="cpu")
+    want = _f64(reads, haps, pair_r, pair_h)
+    assert np.all(np.abs(got - want) < 5e-4), np.abs(got - want).max()
+
+
+@pytest.mark.parametrize("case", sorted(_CASES))
+def test_logl_pairs_matches_jax_scan(case):
+    reads, haps, pair_r, pair_h = _CASES[case]()
+    got = pairhmm.pairhmm_logl_pairs(reads, haps, pair_r, pair_h, device="cpu")
+    want = jax_pairhmm._pairhmm_logl_pairs_scan(reads, haps, pair_r, pair_h)
+    assert np.all(np.abs(got - want) < 1e-5), np.abs(got - want).max()
+
+
+def test_logl_pairs_matches_jax_pallas_interpret():
+    reads, haps, pair_r, pair_h = _mixed_case()
+    got = pairhmm.pairhmm_logl_pairs(reads, haps, pair_r, pair_h, device="cpu")
+    want = jax_pallas.pairhmm_pallas_pairs(reads, haps, pair_r, pair_h)
+    assert np.all(np.abs(got - want) < 1e-5), np.abs(got - want).max()
+
+
+@pytest.mark.parametrize("case", sorted(_CASES))
+def test_padding_invariance(case):
+    """A pair alone and inside a batch (with longer reads and haps beside
+    it) gives the same f32 value bit for bit."""
+    reads, haps, pair_r, pair_h = _CASES[case]()
+    tabs = pc.default_tables("cpu")
+    whole = pc.pairhmm_forward(pc.pack_pairs(reads, haps, pair_r, pair_h), tabs)
+    for b in range(len(pair_r)):
+        one = pc.pairhmm_forward(
+            pc.pack_pairs(reads, haps, pair_r[b : b + 1], pair_h[b : b + 1]), tabs)
+        assert one[0].item() == whole[b].item(), b
+    # reversed batch order
+    rev = pc.pairhmm_forward(pc.pack_pairs(reads, haps, pair_r[::-1], pair_h[::-1]),
+                             tabs)
+    assert torch.equal(rev.flip(0), whole)
+
+
+def test_compute_read_likelihoods_multi_equals_per_region():
+    reads, haps, _, _ = _mixed_case()
+    wl = [(reads[:2], haps[:2], [True, False]), (reads[2:], haps, [True, False, False])]
+    multi = pairhmm.compute_read_likelihoods_multi(wl, device="cpu")
+    for (r, h, ref), (vals, keep) in zip(wl, multi):
+        v1, k1 = pairhmm.compute_read_likelihoods(r, h, ref, device="cpu")
+        assert np.array_equal(v1, vals) and np.array_equal(k1, keep)
+    want = jax_pairhmm.compute_read_likelihoods_multi(wl)
+    for (v, k), (vj, kj) in zip(multi, want):
+        assert np.array_equal(k, kj)
+        assert np.allclose(v, vj, rtol=0, atol=1e-5)
+
+
+def test_tables_bit_equal_to_jax():
+    """tables_from_numpy on the JAX package's f32 tables gives the port's
+    own tables bit for bit."""
+    got = pc.tables_from_numpy(jax_pallas._MP_TABLE, jax_pallas._NMP_TABLE,
+                               jax_pallas._M2M_TABLE, jax_pallas._M2I_TABLE)
+    own = pc.default_tables("cpu")
+    for name in ("mp", "nmp", "m2m", "m2i"):
+        a, b = getattr(got, name), getattr(own, name)
+        assert a.dtype == torch.float32 and torch.equal(a, b), name
+        assert getattr(own, name)[-1].item() == 0.0  # sentinel entry
+    assert own.mp.shape[0] - 1 == jax_pallas._Q_SENT
+    assert own.m2m.shape[0] - 1 == jax_pallas._R_SENT
+
+
+def test_pack_pairs_layout():
+    reads, haps, pair_r, pair_h = _mixed_case()
+    # only the reads and haps that pairs use are packed, each once
+    batch = pc.pack_pairs(reads, haps, pair_r[3:5], pair_h[3:5])
+    assert batch.n_pairs == 2
+    assert batch.field("read_lengths").tolist() == [33]
+    assert batch.field("hap_lengths").tolist() == [40, 67]
+    assert bytes(batch.field("read_bases").numpy()) == reads[1][0]
+    assert batch.field("pair_read").tolist() == [0, 0]
+    assert batch.field("pair_hap").tolist() == [0, 1]
+    mq = jax_pairhmm.modified_qualities(reads[1][1], 60)
+    assert batch.field("read_quals").numpy().tolist() == mq.tolist()
+    assert batch.field("hap_init").tolist() == [np.float32(2.0 ** 100 / 40),
+                                                np.float32(2.0 ** 100 / 67)]
+    for name, _ in pc._FIELDS:
+        assert batch.layout[name][0] % 16 == 0
+
+
+def test_launch_shape():
+    assert pc.launch_shape(1) == (32, 1)
+    assert pc.launch_shape(151) == (160, 1)
+    assert pc.launch_shape(256) == (256, 1)
+    assert pc.launch_shape(257) == (160, 2)
+    assert pc.launch_shape(600) == (160, 4)
+    assert pc.launch_shape(pc.MAX_READ_LEN) == (256, 64)
+    for lr in range(1, 3000, 37):
+        t, r = pc.launch_shape(lr)
+        assert t % 32 == 0 and t <= pc.MAX_THREADS and t * r >= lr
+    with pytest.raises(ValueError):
+        pc.launch_shape(pc.MAX_READ_LEN + 1)
+
+
+def test_build_failure_raises(tmp_path, monkeypatch):
+    """A kernel that does not build raises; nothing falls back."""
+    monkeypatch.setattr(pc, "_LIB", [])
+    monkeypatch.setattr(pc, "_BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(pc, "_nvcc", lambda: "false")
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        pc.library()
+    assert not os.listdir(tmp_path)
