@@ -7,17 +7,22 @@ Phases, each of which must pass:
 
 1. build: compile the port's CUDA kernels from the sources in this
    checkout (csrc/*.cu, one nvcc each, started together);
-2. kernel: the PairHMM kernel at full width (8192 pairs, the pooled
+2. kernel: the PairHMM kernels at full width (8192 pairs, the pooled
    dispatch size; reads 100-151 bp, haplotypes 250-600 bp, some 'N'
-   bases) against its plain PyTorch version on the card (bit for bit)
-   and against the f64 oracle on 64 sampled pairs (within 5e-4 log10);
-   its time, the plain version's time and its bound;
+   bases), through the warp path (which the plan picks for them) and,
+   forced, the CTA path, each against the plain PyTorch version on the
+   card (bit for bit); the warp path against the f64 oracle on 64
+   sampled pairs (within 5e-4 log10); each path's time in turns in this
+   run, the plain version's time and the bound; then 256 pairs with
+   reads of 300-1500 bp, which only the CTA path takes, against the plain
+   version;
 3. golden: the port's CLI on cuda reproduces
    tests/fixtures/hc_golden.expected.{vcf,gvcf} byte for byte;
 4. slice: ``filter --sorting-order coordinate --haplotypecaller
    --reference-confidence GVCF`` on a 120 000-read fixture over a 2 Mb
    genome (the JAX package's end-to-end fixture shape, with planted
-   SNPs), with the kernel launch counts of that run.
+   SNPs), with the kernel launch counts of that run per path; every
+   launch must have taken the warp path.
 
 Prints the card (nvidia-smi name and power limit), one JSON line with
 the kernels' numbers, and as its last line
@@ -43,6 +48,15 @@ FIXTURES = os.path.join(TESTS, "fixtures")
 # H100 SXM peaks (NVIDIA data sheet): non-tensor float32 and HBM3 rate
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+# the PairHMM kernels' own ceiling: built with -fmad=false, every f32
+# operation is one FMUL or FADD, at most one per lane per clock (132 SMs x
+# 128 lanes x 1.98 GHz), half the FMA-counting peak above
+PEAK_F32_OPS_NO_FMA = 132 * 128 * 1.98e9
+# f32 operations per DP cell: the function needs 11 (7 multiplies, 4 adds,
+# with (I2 + D2) * i2m as one multiply); the kernels' bit-exact order
+# multiplies I2 and D2 by i2m apart, one multiply more
+OPS_PER_CELL = 11
+KERNEL_OPS_PER_CELL = 12
 
 KERNEL_PAIRS = 8192
 SLICE_READS = 120_000
@@ -69,6 +83,28 @@ def _median_ms(fn, reps: int) -> float:
         times.append(e0.elapsed_time(e1))
     times.sort()
     return times[len(times) // 2]
+
+
+def _median_ms_turns(fns: dict, reps: int) -> dict:
+    """Median CUDA-event ms of each of ``fns`` over ``reps`` rounds taken
+    in turns (the order reversed every other round), after one warm-up
+    each: versions compared on one card in one run."""
+    import torch
+
+    for fn in fns.values():
+        fn()
+    times = {k: [] for k in fns}
+    order = list(fns)
+    for k in range(reps):
+        for name in (order if k % 2 == 0 else order[::-1]):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            fns[name]()
+            e1.record()
+            e1.synchronize()
+            times[name].append(e0.elapsed_time(e1))
+    return {k: sorted(v)[len(v) // 2] for k, v in times.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -103,12 +139,13 @@ def build_phase() -> dict:
 
 
 def make_pairs(n_pairs: int, seed: int, reads_per_region: int = 8,
-               haps_per_region: int = 4):
+               haps_per_region: int = 4, read_len=(100, 151), hap_len=(250, 600)):
     """Synthetic HaplotypeCaller dispatch: regions of ``haps_per_region``
-    haplotypes (250-600 bp, mutated copies of one reference window) and
-    ``reads_per_region`` reads (100-151 bp, sampled from a haplotype with
-    2% errors and some 'N' bases), every read against every haplotype of
-    its region. Returns (reads, haps, pair_r, pair_h)."""
+    haplotypes (``hap_len`` bp, by default 250-600, mutated copies of one
+    reference window) and ``reads_per_region`` reads (``read_len`` bp, by
+    default 100-151, sampled from a haplotype with 2% errors and some 'N'
+    bases), every read against every haplotype of its region. Returns
+    (reads, haps, pair_r, pair_h)."""
     import numpy as np
 
     rng = np.random.RandomState(seed)
@@ -116,7 +153,7 @@ def make_pairs(n_pairs: int, seed: int, reads_per_region: int = 8,
     reads, haps, pair_r, pair_h = [], [], [], []
     per_region = reads_per_region * haps_per_region
     for _ in range(-(-n_pairs // per_region)):
-        ref = rng.choice(acgt, rng.randint(250, 601))
+        ref = rng.choice(acgt, rng.randint(hap_len[0], hap_len[1] + 1))
         h0 = len(haps)
         for k in range(haps_per_region):
             h = ref.copy()
@@ -130,7 +167,7 @@ def make_pairs(n_pairs: int, seed: int, reads_per_region: int = 8,
         r0 = len(reads)
         for _ in range(reads_per_region):
             src = np.frombuffer(haps[h0 + rng.randint(haps_per_region)], np.uint8)
-            lr = rng.randint(100, 152)
+            lr = rng.randint(read_len[0], read_len[1] + 1)
             st = rng.randint(0, len(src) - lr + 1)
             seq = src[st : st + lr].copy()
             err = rng.rand(lr) < 0.02
@@ -146,8 +183,42 @@ def make_pairs(n_pairs: int, seed: int, reads_per_region: int = 8,
             np.asarray(pair_h[:n_pairs], np.int64))
 
 
+def _bound_ms(batch, cells: int) -> tuple:
+    """(operations bound, bytes bound) in ms: OPS_PER_CELL f32 operations
+    per cell at the non-tensor f32 peak; the packed inputs read once and
+    the f32 outputs written once at the HBM rate."""
+    ops_ms = OPS_PER_CELL * cells / PEAK_F32_FLOPS * 1e3
+    bytes_ms = (batch.blob.numel() + 4 * batch.n_pairs) / PEAK_BYTES_PER_S * 1e3
+    return ops_ms, bytes_ms
+
+
+def _cells(reads, haps, pair_r, pair_h) -> int:
+    import numpy as np
+
+    lr = np.array([len(reads[r][1]) for r in pair_r], np.int64)
+    lh = np.array([len(haps[h]) for h in pair_h], np.int64)
+    return int((lr * lh).sum())
+
+
+def _check_equal(name: str, got, plain) -> float:
+    import torch
+
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: non-finite values")
+    err = float((got - plain).abs().max())
+    _log("%s vs plain: max abs diff %r, bitwise equal %s"
+         % (name, err, bool(torch.equal(got, plain))))
+    if not torch.equal(got, plain):
+        raise AssertionError(f"{name} differs from the plain version: {err!r}")
+    return err
+
+
 def kernel_phase(n_pairs: int = KERNEL_PAIRS, reps: int = 20,
                  n_sample: int = 64) -> dict:
+    """The pooled dispatch size through both kernels (forced: the warp
+    path, which the plan picks for these reads, and the CTA path), each
+    bit-equal to the plain version; then a long-read batch that only the
+    CTA path takes."""
     import numpy as np
     import torch
 
@@ -158,16 +229,16 @@ def kernel_phase(n_pairs: int = KERNEL_PAIRS, reps: int = 20,
     reads, haps, pair_r, pair_h = make_pairs(n_pairs, seed=5)
     batch = pc.pack_pairs(reads, haps, pair_r, pair_h).to(device)
     tabs = pc.default_tables(device)
+    plan = pc.launch_plan(batch.max_read_len)
+    if plan[0] != "warp":
+        raise AssertionError(f"{n_pairs} short-read pairs planned on {plan}")
     plain = pc.pairhmm_forward_plain(batch, tabs)
-    got = pc.pairhmm_forward(batch, tabs)
+    got = pc._pairhmm_forward_path(batch, tabs, "warp")
+    cta = pc._pairhmm_forward_path(batch, tabs, "cta")
     torch.cuda.synchronize()
-    if not bool(torch.isfinite(got).all()):
-        raise AssertionError("kernel produced non-finite values")
-    err = float((got - plain).abs().max())
-    _log("kernel vs plain on %s, %d pairs: max abs diff %r, bitwise equal %s"
-         % (device, n_pairs, err, bool(torch.equal(got, plain))))
-    if not torch.equal(got, plain):
-        raise AssertionError(f"kernel differs from its plain version: {err!r}")
+    err = max(_check_equal(f"warp kernel {plan}, {n_pairs} pairs", got, plain),
+              _check_equal(f"cta kernel {pc.launch_plan(batch.max_read_len, 'cta')}, "
+                           f"{n_pairs} pairs", cta, plain))
 
     # f64 oracle on sampled pairs that the pipeline keeps from f32
     acc = got.cpu().numpy().astype(np.float64)
@@ -187,25 +258,55 @@ def kernel_phase(n_pairs: int = KERNEL_PAIRS, reps: int = 20,
     if len(sample) < n_sample or worst >= 5e-4:
         raise AssertionError(f"f64 oracle check failed: {len(sample)} pairs, {worst}")
 
-    lr = np.array([len(reads[r][1]) for r in pair_r], np.int64)
-    lh = np.array([len(haps[h]) for h in pair_h], np.int64)
-    cells = int((lr * lh).sum())
-    ms = _median_ms(lambda: pc.pairhmm_forward(batch, tabs), reps)
+    cells = _cells(reads, haps, pair_r, pair_h)
+    ops_ms, bytes_ms = _bound_ms(batch, cells)
+    times = _median_ms_turns({
+        "warp": lambda: pc._pairhmm_forward_path(batch, tabs, "warp"),
+        "cta": lambda: pc._pairhmm_forward_path(batch, tabs, "cta"),
+    }, reps)
     plain_ms = _median_ms(lambda: pc.pairhmm_forward_plain(batch, tabs), 3)
-    # bound: 11 f32 operations per cell at the non-tensor f32 peak, or the
-    # packed inputs read once and the f32 outputs written once
-    ops_ms = 11.0 * cells / PEAK_F32_FLOPS * 1e3
-    bytes_ms = (batch.blob.numel() + 4 * n_pairs) / PEAK_BYTES_PER_S * 1e3
-    _log("pairhmm kernel: %d pairs, %d cells: %.4f ms median (%.2f GCUPS); "
-         "plain version %.2f ms; bound %.4f ms (operations; bytes %.6f ms)"
-         % (n_pairs, cells, ms, cells / ms / 1e6, plain_ms, ops_ms, bytes_ms))
+    ceiling_ms = OPS_PER_CELL * cells / PEAK_F32_OPS_NO_FMA * 1e3
+    kernel_ceiling_ms = KERNEL_OPS_PER_CELL * cells / PEAK_F32_OPS_NO_FMA * 1e3
+    paths = {}
+    for name, ms in times.items():
+        paths[name] = {"ms": ms, "gcups": cells / ms / 1e6, "pairs": n_pairs,
+                       "cells": cells, "bound_ms": max(ops_ms, bytes_ms)}
+        _log("pairhmm %s: %d pairs, %d cells: %.4f ms median of %d (%.2f GCUPS); "
+             "bound %.4f ms (operations; bytes %.6f ms), %.1fx off it; without "
+             "FMA at best %.4f ms, %.1fx off that (%.4f ms at the kernels' %d "
+             "operations per cell)"
+             % (name, n_pairs, cells, ms, reps, cells / ms / 1e6, ops_ms, bytes_ms,
+                ms / ops_ms, ceiling_ms, ms / ceiling_ms, kernel_ceiling_ms,
+                KERNEL_OPS_PER_CELL))
+    _log("pairhmm: warp path %.2fx faster than the cta path (same run, same "
+         "pairs); plain version %.2f ms" % (times["cta"] / times["warp"], plain_ms))
+
+    # long reads: only the CTA path takes them
+    lreads, lhaps, lpr, lph = make_pairs(256, seed=8, read_len=(300, 1500),
+                                         hap_len=(1600, 2400))
+    lbatch = pc.pack_pairs(lreads, lhaps, lpr, lph).to(device)
+    lplan = pc.launch_plan(lbatch.max_read_len)
+    if lplan[0] != "cta":
+        raise AssertionError(f"long-read batch planned on {lplan}")
+    lplain = pc.pairhmm_forward_plain(lbatch, tabs)
+    lgot = pc.pairhmm_forward(lbatch, tabs)
+    torch.cuda.synchronize()
+    err = max(err, _check_equal(f"cta kernel {lplan}, 256 long-read pairs", lgot, lplain))
+    lcells = _cells(lreads, lhaps, lpr, lph)
+    lops_ms, lbytes_ms = _bound_ms(lbatch, lcells)
+    lms = _median_ms(lambda: pc.pairhmm_forward(lbatch, tabs), reps)
+    paths["cta_long"] = {"ms": lms, "gcups": lcells / lms / 1e6, "pairs": 256,
+                         "cells": lcells, "bound_ms": max(lops_ms, lbytes_ms)}
+    _log("pairhmm cta_long: 256 pairs (reads 300-1500, haps 1600-2400), %d cells: "
+         "%.4f ms median of %d (%.2f GCUPS); bound %.4f ms (operations; bytes "
+         "%.6f ms)" % (lcells, lms, reps, lcells / lms / 1e6, lops_ms, lbytes_ms))
     return {"name": "pairhmm_forward", "route": "cuda",
             "source": "elprep_tpu_torch/csrc/pairhmm.cu",
             "replaces": "elprep_tpu/ops/pairhmm_pallas.py:39",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": err, "ms": times["warp"], "plain_ms": plain_ms,
             "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "library_ms": None, "cells": cells, "pairs": n_pairs}
+            "library_ms": None, "cells": cells, "pairs": n_pairs, "paths": paths}
 
 
 # ---------------------------------------------------------------------------
@@ -373,15 +474,19 @@ def slice_phase(workdir: str, n_reads: int = SLICE_READS,
             "--reference", elfasta, "--haplotypecaller", out_vcf,
             "--reference-confidence", "GVCF", "--timed"]
     pc.LAUNCHES = 0
+    pc.LAUNCHES_BY_PATH.update({k: 0 for k in pc.LAUNCHES_BY_PATH})
     with _PairHMMTimer() as tm:
         t0 = time.perf_counter()
         rc = cli.main(args)
         wall = time.perf_counter() - t0
     launches = pc.LAUNCHES
+    by_path = dict(pc.LAUNCHES_BY_PATH)
     if rc != 0:
         raise AssertionError(f"slice run failed: rc {rc}")
     if launches <= 0:
         raise AssertionError("the slice run launched no PairHMM kernel")
+    if by_path["warp"] != launches:
+        raise AssertionError(f"slice launches off the warp path: {by_path}")
     hdr, batch = samio.read_sam_file(out_bam)
     if len(batch) != n_reads or hdr.hd_so().value != "coordinate":
         raise AssertionError(f"slice BAM: {len(batch)} records, SO {hdr.hd_so()}")
@@ -395,12 +500,13 @@ def slice_phase(workdir: str, n_reads: int = SLICE_READS,
     _log("slice: %d reads in %.2f s = %.0f reads/s; BAM %d records; GVCF %d "
          "records (%d with an ALT besides <NON_REF>)"
          % (n_reads, wall, n_reads / wall, len(batch), len(records), len(variants)))
-    _log("slice PairHMM: %d launches, %d pairs; %.2f s wall in the PairHMM "
-         "(%.1f%% of the run): host packing %.2f s, kernel %.3f s on the device"
-         % (launches, tm.pairs, tm.total_s, 100.0 * tm.total_s / wall,
-            tm.pack_s, kernel_s))
-    return {"launches": launches, "wall_s": wall, "pairhmm_s": tm.total_s,
-            "pack_s": tm.pack_s, "kernel_s": kernel_s}
+    _log("slice PairHMM: %d launches (per path %s), %d pairs; %.2f s wall in "
+         "the PairHMM (%.1f%% of the run): host packing %.2f s, kernel %.4f s "
+         "on the device"
+         % (launches, json.dumps(by_path), tm.pairs, tm.total_s,
+            100.0 * tm.total_s / wall, tm.pack_s, kernel_s))
+    return {"launches": launches, "launches_by_path": by_path, "wall_s": wall,
+            "pairhmm_s": tm.total_s, "pack_s": tm.pack_s, "kernel_s": kernel_s}
 
 
 # ---------------------------------------------------------------------------
@@ -439,6 +545,7 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     kernel["launches"] = run["launches"]
+    kernel["launches_by_path"] = run["launches_by_path"]
     print(json.dumps({"kernels": [kernel]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

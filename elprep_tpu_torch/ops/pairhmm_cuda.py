@@ -1,9 +1,12 @@
-"""PairHMM forward pass on the card: the hand-written Hopper kernel
-(``csrc/pairhmm.cu``), its wrapper, its plain PyTorch version and its
-launch counter.
+"""PairHMM forward pass on the card: the hand-written Hopper kernels
+(``csrc/pairhmm.cu``), their wrapper, their plain PyTorch version and the
+launch counters.
 
 This is the counterpart of ``elprep_tpu/ops/pairhmm_pallas.py``: the
-kernel replaces the Pallas TPU wavefront ``pairhmm_pallas._kernel``.
+kernels replace the Pallas TPU wavefront ``pairhmm_pallas._kernel``. Two
+kernels compute the same function, bit for bit; ``launch_plan`` picks one
+per batch from its longest read: the warp-per-pair kernel ("warp") up to
+``WARP_MAX_READ_LEN`` bases, the CTA-per-pair kernel ("cta") above.
 
 Inputs travel as one :class:`PairBatch`: the distinct reads and
 haplotypes of a dispatch, each stored once (bases, modified qualities and
@@ -27,7 +30,7 @@ import subprocess
 import tempfile
 import time
 from dataclasses import dataclass
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -36,18 +39,28 @@ from ..hc import tables
 from .pairhmm import (F32_INITIAL_POW, F32_RESCUE_LOG10, modified_qualities,
                       pairhmm_f64_diag, repeat_lengths_for_read)
 
-# kernel launches so far (the wrapper adds one per launch, nowhere else)
+# kernel launches so far, in all and per path (the wrapper adds one where
+# it launches a kernel, nowhere else)
 LAUNCHES = 0
+LAUNCHES_BY_PATH = {"warp": 0, "cta": 0}
 
 I2M = np.float32(tables.INDEL_TO_MATCH)
 I2I = np.float32(tables.INDEL_TO_INDEL)
 _N = ord("N")
 
-# the kernel's launch shape: at most this many threads (a multiple of 32)
-# per pair, each holding 1, 2, 4, ... rows of the DP matrix
+# the CTA kernel's launch shape: at most this many threads (a multiple of
+# 32) per pair, each holding 1, 2, 4, ... rows of the DP matrix
 MAX_THREADS = 256
 MAX_ROWS_PER_THREAD = 64
 MAX_READ_LEN = MAX_THREADS * MAX_ROWS_PER_THREAD
+# the warp kernel's: one warp per pair, each lane holding 1, 2, 3, ... 8
+# rows; WARPS_PER_CTA pairs per CTA. 4 rather than 8: with no barrier the
+# warps of a CTA share nothing, and at 5 rows per lane the register file
+# holds more warps per SM as CTAs of 4 than of 8 (4 was the faster in every
+# run that timed both on the same pairs, PERF.md)
+WARP_MAX_ROWS = 8
+WARP_MAX_READ_LEN = 32 * WARP_MAX_ROWS
+WARPS_PER_CTA = 4
 
 _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc", "pairhmm.cu")
@@ -282,18 +295,21 @@ class _Library:
         self.build_log = log
         lib = ctypes.CDLL(path)
         P = ctypes.c_void_p
-        lib.pairhmm_forward.argtypes = [P] * 15 + [ctypes.c_float, ctypes.c_float, P,
-                                                   ctypes.c_int, ctypes.c_int,
-                                                   ctypes.c_int, P]
-        lib.pairhmm_forward.restype = ctypes.c_int
+        for fn in (lib.pairhmm_forward, lib.pairhmm_forward_warp):
+            fn.argtypes = [P] * 15 + [ctypes.c_float, ctypes.c_float, P,
+                                      ctypes.c_int, ctypes.c_int, ctypes.c_int, P]
+            fn.restype = ctypes.c_int
         lib.pairhmm_error_string.argtypes = [ctypes.c_int]
         lib.pairhmm_error_string.restype = ctypes.c_char_p
         lib.pairhmm_max_rows_per_thread.restype = ctypes.c_int
         lib.pairhmm_max_threads.restype = ctypes.c_int
+        lib.pairhmm_warp_max_rows_per_lane.restype = ctypes.c_int
         if (lib.pairhmm_max_rows_per_thread() != MAX_ROWS_PER_THREAD
-                or lib.pairhmm_max_threads() != MAX_THREADS):
+                or lib.pairhmm_max_threads() != MAX_THREADS
+                or lib.pairhmm_warp_max_rows_per_lane() != WARP_MAX_ROWS):
             raise RuntimeError(f"{path}: launch limits disagree with the wrapper")
         self.lib = lib
+        self.entry = {"cta": lib.pairhmm_forward, "warp": lib.pairhmm_forward_warp}
 
 
 _LIB: list = []
@@ -337,25 +353,48 @@ def library() -> _Library:
     return _LIB[0]
 
 
-def launch_shape(max_read_len: int) -> Tuple[int, int]:
-    """(threads, rows per thread) for a batch whose longest read has
-    ``max_read_len`` bases: rows per thread is the smallest power of two
-    that fits the read in MAX_THREADS threads."""
+def launch_plan(max_read_len: int, path: Optional[str] = None) -> Tuple[str, int, int]:
+    """(path, threads, rows per thread) for a batch whose longest read has
+    ``max_read_len`` bases. Up to WARP_MAX_READ_LEN bases the "warp" path:
+    WARPS_PER_CTA warps per CTA, one pair per warp, at most
+    ceil(max_read_len / 32) rows per lane (the kernel's instantiation; each
+    warp takes ceil(lr / 32) for its own pair). Above it the "cta" path:
+    one CTA per pair, rows per
+    thread the smallest power of two that fits the read in MAX_THREADS
+    threads. ``path`` forces one of the two for a batch it can take."""
     if max_read_len > MAX_READ_LEN:
         raise ValueError(f"read of {max_read_len} bases exceeds {MAX_READ_LEN}")
+    if path is None:
+        path = "warp" if max_read_len <= WARP_MAX_READ_LEN else "cta"
+    if path == "warp":
+        if max_read_len > WARP_MAX_READ_LEN:
+            raise ValueError(f"read of {max_read_len} bases exceeds the warp "
+                             f"path's {WARP_MAX_READ_LEN}")
+        return "warp", 32 * WARPS_PER_CTA, max(1, -(-max_read_len // 32))
+    if path != "cta":
+        raise ValueError(f"unknown PairHMM path {path!r}")
     rows = 1
     while rows * MAX_THREADS < max_read_len:
         rows *= 2
     per_thread = -(-max_read_len // rows)
-    return max(32, -(-per_thread // 32) * 32), rows
+    return "cta", max(32, -(-per_thread // 32) * 32), rows
 
 
 def pairhmm_forward(batch: PairBatch, tabs: PairHMMTables) -> torch.Tensor:
     """acc[b] (float32, on the batch's device): the sum of M + I over the
     last DP row of pair b, scaled by 2^100 / lh. A batch on the CPU runs
-    the plain version; a batch on ``cuda`` launches the kernel on the
-    current stream (no synchronisation) or raises."""
+    the plain version; a batch on ``cuda`` launches the kernel that
+    ``launch_plan`` picks on the current stream (no synchronisation) or
+    raises."""
+    return _pairhmm_forward_path(batch, tabs, None)
+
+
+def _pairhmm_forward_path(batch: PairBatch, tabs: PairHMMTables,
+                          path: Optional[str]) -> torch.Tensor:
+    """pairhmm_forward on a forced ``path`` ("warp" or "cta"; None: the
+    plan's). For the tests and chip_smoke.py only."""
     global LAUNCHES
+    path, threads, rows = launch_plan(batch.max_read_len, path)
     dev = batch.device
     for name, t in (("mp", tabs.mp), ("nmp", tabs.nmp), ("m2m", tabs.m2m),
                     ("m2i", tabs.m2i)):
@@ -370,12 +409,11 @@ def pairhmm_forward(batch: PairBatch, tabs: PairHMMTables) -> torch.Tensor:
     acc = torch.empty(batch.n_pairs, dtype=torch.float32, device=dev)
     if batch.n_pairs == 0:
         return acc
-    threads, rows = launch_shape(batch.max_read_len)
-    lib = library().lib
+    lib = library()
     f = batch.field
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.pairhmm_forward(
+        err = lib.entry[path](
             f("read_bases").data_ptr(), f("read_quals").data_ptr(),
             f("read_repeats").data_ptr(), f("read_offsets").data_ptr(),
             f("read_lengths").data_ptr(), f("hap_bases").data_ptr(),
@@ -385,9 +423,10 @@ def pairhmm_forward(batch: PairBatch, tabs: PairHMMTables) -> torch.Tensor:
             tabs.m2m.data_ptr(), tabs.m2i.data_ptr(), float(I2M), float(I2I),
             acc.data_ptr(), batch.n_pairs, threads, rows, stream)
     if err != 0:
-        raise RuntimeError("PairHMM kernel launch failed: "
-                           + lib.pairhmm_error_string(err).decode())
+        raise RuntimeError(f"PairHMM {path} kernel launch failed: "
+                           + lib.lib.pairhmm_error_string(err).decode())
     LAUNCHES += 1
+    LAUNCHES_BY_PATH[path] += 1
     return acc
 
 

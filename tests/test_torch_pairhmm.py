@@ -177,17 +177,60 @@ def test_pack_pairs_layout():
 
 
 def test_launch_shape():
-    assert pc.launch_shape(1) == (32, 1)
-    assert pc.launch_shape(151) == (160, 1)
-    assert pc.launch_shape(256) == (256, 1)
-    assert pc.launch_shape(257) == (160, 2)
-    assert pc.launch_shape(600) == (160, 4)
-    assert pc.launch_shape(pc.MAX_READ_LEN) == (256, 64)
+    """launch_plan: the warp path up to 256 bases (every rows-per-lane
+    count 1..8), the CTA path above, the same limits as before."""
+    w = 32 * pc.WARPS_PER_CTA
+    assert pc.launch_plan(1) == ("warp", w, 1)
+    assert pc.launch_plan(100) == ("warp", w, 4)
+    assert pc.launch_plan(151) == ("warp", w, 5)
+    assert pc.launch_plan(256) == ("warp", w, 8)
+    assert pc.launch_plan(257) == ("cta", 160, 2)
+    assert pc.launch_plan(600) == ("cta", 160, 4)
+    assert pc.launch_plan(pc.MAX_READ_LEN) == ("cta", 256, 64)
+    assert {pc.launch_plan(lr)[2] for lr in range(1, 257)} == set(range(1, 9))
     for lr in range(1, 3000, 37):
-        t, r = pc.launch_shape(lr)
-        assert t % 32 == 0 and t <= pc.MAX_THREADS and t * r >= lr
+        path, t, r = pc.launch_plan(lr)
+        assert t % 32 == 0 and t <= pc.MAX_THREADS
+        assert (32 * r >= lr) if path == "warp" else (t * r >= lr)
+        assert path == ("warp" if lr <= pc.WARP_MAX_READ_LEN else "cta")
     with pytest.raises(ValueError):
-        pc.launch_shape(pc.MAX_READ_LEN + 1)
+        pc.launch_plan(pc.MAX_READ_LEN + 1)
+
+
+def test_launch_plan_forced_path():
+    """A forced path: the CTA kernel takes any read, the warp kernel none
+    over 256 bases; for short reads the CTA path keeps its own shapes."""
+    assert pc.launch_plan(1, "cta") == ("cta", 32, 1)
+    assert pc.launch_plan(151, "cta") == ("cta", 160, 1)
+    assert pc.launch_plan(256, "cta") == ("cta", 256, 1)
+    assert pc.launch_plan(151, "warp") == ("warp", 32 * pc.WARPS_PER_CTA, 5)
+    with pytest.raises(ValueError):
+        pc.launch_plan(257, "warp")
+    with pytest.raises(ValueError):
+        pc.launch_plan(100, "tile")
+
+
+@pytest.mark.parametrize("path", ["warp", "cta"])
+def test_forced_path_on_cpu_is_plain(path):
+    """On the CPU the forced entry runs the plain version and counts no
+    launch; a batch the forced path cannot take raises."""
+    reads, haps, pair_r, pair_h = _n_heavy_case()
+    batch = pc.pack_pairs(reads, haps, pair_r, pair_h)
+    tabs = pc.default_tables("cpu")
+    n0, by0 = pc.LAUNCHES, dict(pc.LAUNCHES_BY_PATH)
+    got = pc._pairhmm_forward_path(batch, tabs, path)
+    assert torch.equal(got, pc.pairhmm_forward_plain(batch, tabs))
+    assert pc.LAUNCHES == n0 and pc.LAUNCHES_BY_PATH == by0
+    rng = np.random.RandomState(2)
+    long_read = [(rng.choice(_BASES, 300).tobytes(),
+                  rng.randint(2, 41, 300).astype(np.uint8), 60)]
+    long_batch = pc.pack_pairs(long_read, haps, [0], [0])
+    if path == "warp":
+        with pytest.raises(ValueError):
+            pc._pairhmm_forward_path(long_batch, tabs, path)
+    else:
+        assert torch.equal(pc._pairhmm_forward_path(long_batch, tabs, path),
+                           pc.pairhmm_forward_plain(long_batch, tabs))
 
 
 def test_build_failure_raises(tmp_path, monkeypatch):
