@@ -16,16 +16,30 @@ Phases, each of which must pass:
    run, the plain version's time and the bound; then 256 pairs with
    reads of 300-1500 bp, which only the CTA path takes, against the plain
    version;
-3. golden: the port's CLI on cuda reproduces
-   tests/fixtures/hc_golden.expected.{vcf,gvcf} byte for byte;
-4. slice: ``filter --sorting-order coordinate --haplotypecaller
-   --reference-confidence GVCF`` on a 120 000-read fixture over a 2 Mb
-   genome (the JAX package's end-to-end fixture shape, with planted
-   SNPs), with the kernel launch counts of that run per path; every
-   launch must have taken the warp path.
+3. golden: the port's CLI on cuda reproduces the duplicate-marking,
+   metrics, BQSR and HaplotypeCaller goldens of tests/fixtures byte for
+   byte;
+4. device ops: on the 5-step fixture (below), the duplicate mask, the six
+   BQSR tables and the recalibrated quals computed on the card are
+   bit-equal to their host twins (the CPU route's numpy/native engines),
+   with each one's card time, host twin time and bytes bound;
+5. 5-step: ``filter --mark-duplicates --mark-optical-duplicates
+   --sorting-order coordinate --bqsr --known-sites --haplotypecaller
+   --reference-confidence GVCF`` (bench.py's command) on 120 000 reads
+   over a 2 Mb genome (bench.py's fixture shape: 118 000 sampled reads
+   from a genome with planted SNPs, the planted SNPs as known sites, and
+   2 000 duplicates with Illumina qnames within optical distance); every
+   record written, coordinate-sorted, duplicates and optical duplicates
+   found, the recal report's read-group row, ALT calls in the GVCF, the
+   device programs run on the card, every PairHMM launch on the warp
+   path; the phase walls of --timed;
+6. slice: the earlier ``filter --sorting-order coordinate
+   --haplotypecaller --reference-confidence GVCF`` on 30 000 reads, its
+   launches again all on the warp path.
 
 Prints the card (nvidia-smi name and power limit), one JSON line with
-the kernels' numbers, and as its last line
+the device programs' numbers, one with the kernels' numbers (launches
+from the 5-step run), and as its last line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Exits non-zero,
 printing no result, without a CUDA device or outside a checkout of the
 repository. Imports nothing of JAX and nothing of elprep_tpu.
@@ -59,7 +73,8 @@ OPS_PER_CELL = 11
 KERNEL_OPS_PER_CELL = 12
 
 KERNEL_PAIRS = 8192
-SLICE_READS = 120_000
+FIVE_STEP_READS = 120_000
+SLICE_READS = 30_000
 SLICE_CONTIGS = [("chr1", 1_200_000), ("chr2", 800_000)]
 
 
@@ -320,8 +335,47 @@ def _mask(data: bytes) -> bytes:
         else ln for ln in data.split(b"\n"))
 
 
+def _read(path: str) -> bytes:
+    with open(path, "rb") as fh:
+        return fh.read()
+
+
 def golden_phase(workdir: str) -> None:
+    """The repository's hand-verified goldens through the port's CLI on
+    cuda: duplicate marking + sort, the duplication metrics, the BQSR
+    report (tests/test_golden.py's arguments) and the HaplotypeCaller."""
     from elprep_tpu_torch import cli
+
+    def run(argv, what):
+        rc = cli.main(argv)
+        if rc != 0:
+            raise AssertionError(f"golden {what}: rc {rc}")
+
+    out = os.path.join(workdir, "dedup_golden.sam")
+    run(["filter", os.path.join(FIXTURES, "dedup_golden.in.sam"), out,
+         "--mark-duplicates", "--sorting-order", "coordinate", "--pg-cmd-line",
+         "elprep filter dedup_golden.in.sam dedup_golden.out.sam "
+         "--mark-duplicates --sorting-order coordinate"], "dedup")
+    metrics = os.path.join(workdir, "metrics_golden.txt")
+    run(["filter", os.path.join(FIXTURES, "metrics_golden.in.sam"),
+         os.path.join(workdir, "metrics_golden.sam"), "--mark-duplicates",
+         "--mark-optical-duplicates", metrics, "--sorting-order", "coordinate"],
+        "metrics")
+    bqsr_ref = os.path.join(workdir, "bqsr_golden.elfasta")
+    run(["fasta-to-elfasta", os.path.join(FIXTURES, "bqsr_golden.ref.fasta"), bqsr_ref],
+        "bqsr reference")
+    recal = os.path.join(workdir, "bqsr_golden.recal")
+    run(["filter", os.path.join(FIXTURES, "bqsr_golden.in.sam"),
+         os.path.join(workdir, "bqsr_golden.sam"), "--bqsr", recal, "--reference",
+         bqsr_ref], "bqsr")
+    got_metrics = _read(metrics)
+    for got, name in ((_read(out), "dedup_golden.expected.sam"),
+                      (got_metrics[got_metrics.index(b"## METRICS CLASS"):],
+                       "metrics_golden.expected.txt"),
+                      (_read(recal), "bqsr_golden.expected.recal")):
+        if got != _read(os.path.join(FIXTURES, name)):
+            raise AssertionError(f"golden: output differs from {name}")
+        _log(f"golden: byte-equal to {name}")
 
     ref = os.path.join(workdir, "golden_ref.elfasta")
     if cli.main(["fasta-to-elfasta", os.path.join(FIXTURES, "hc_golden.ref.fasta"),
@@ -346,17 +400,15 @@ def golden_phase(workdir: str) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Phase 4: the slice at real size
+# Fixtures of the slices: the JAX package's end-to-end shape (bench.py)
 # ---------------------------------------------------------------------------
 
 
-def make_slice_fixture(workdir: str, n_reads: int = SLICE_READS,
-                       contigs=SLICE_CONTIGS) -> tuple:
-    """The JAX package's end-to-end fixture shape (bench.py): 100 bp read
-    pairs (tests/samgen.py, seed 11) over a synthetic genome (seed 7).
-    The reads come from a copy of the genome with a SNP planted about
-    every kilobase, so the HaplotypeCaller finds active regions to
-    assemble and score. Returns (sam, elfasta)."""
+def make_reference(workdir: str, contigs=SLICE_CONTIGS) -> dict:
+    """The synthetic genome of bench.py (seed 7) as .elfasta, and a copy of
+    it with a SNP planted about every kilobase, from which the reads are
+    sampled, so the HaplotypeCaller finds active regions to assemble and
+    score. Returns {"alt", "snps" [(contig, 0-based pos)], "elfasta"}."""
     import random
 
     import samgen
@@ -365,20 +417,15 @@ def make_slice_fixture(workdir: str, n_reads: int = SLICE_READS,
 
     genome = samgen.make_genome(contigs, seed=7)
     rng = random.Random(19)
-    alt = {}
+    alt, snps = {}, []
     for name, ln in contigs:
         seq = bytearray(genome[name])
         for p in range(rng.randrange(500, 1500), ln, 1000):
             p += rng.randrange(-300, 300)
             if seq[p : p + 1] in (b"A", b"C", b"G", b"T"):
                 seq[p] = ord(rng.choice([b for b in "ACGT" if ord(b) != seq[p]]))
+                snps.append((name, p))
         alt[name] = bytes(seq)
-    header = samgen.make_header_lines(
-        contigs, rgs=[{"ID": "rg1", "LB": "lib1", "SM": "s1", "PU": "unit1"}])
-    lines = samgen.reads_from_genome(n_reads, contigs, alt, seed=11, rg_ids=["rg1"])
-    sam = os.path.join(workdir, "slice.sam")
-    with open(sam, "w") as fh:
-        fh.write("\n".join(header + lines) + "\n")
     fasta = os.path.join(workdir, "slice.fasta")
     with open(fasta, "w") as fh:
         for name, _ in contigs:
@@ -388,7 +435,488 @@ def make_slice_fixture(workdir: str, n_reads: int = SLICE_READS,
     elfasta = os.path.join(workdir, "slice.elfasta")
     if cli.main(["fasta-to-elfasta", fasta, elfasta]) != 0:
         raise AssertionError("fasta-to-elfasta failed")
-    return sam, elfasta
+    return {"alt": alt, "snps": snps, "elfasta": elfasta}
+
+
+def _header(contigs):
+    import samgen
+
+    return samgen.make_header_lines(
+        contigs, rgs=[{"ID": "rg1", "LB": "lib1", "SM": "s1", "PU": "unit1"}])
+
+
+def make_slice_fixture(workdir: str, ref: dict, n_reads: int,
+                       contigs=SLICE_CONTIGS) -> str:
+    """100 bp read pairs (tests/samgen.py, seed 11) from the planted
+    genome. Returns the SAM path."""
+    import samgen
+
+    lines = samgen.reads_from_genome(n_reads, contigs, ref["alt"], seed=11,
+                                     rg_ids=["rg1"])
+    sam = os.path.join(workdir, "slice.sam")
+    with open(sam, "w") as fh:
+        fh.write("\n".join(_header(contigs) + lines) + "\n")
+    return sam
+
+
+def realign_soft_clips(lines: list) -> list:
+    """tests/samgen.reads_from_genome samples a soft-clipped first mate's
+    bases from POS on, so its aligned part sits one clip length off the
+    reference: about 9% of all aligned bases then mismatch, BQSR
+    (correctly) recalibrates nearly every base to Q10 or so, and the
+    HaplotypeCaller, which drops bases at or below Q10, has nothing left
+    to call. Move such a read's POS (and its mate's PNEXT) by the clip
+    length, where its bases came from. Returns new SAM lines."""
+    import re
+
+    shift = {}
+    rows = [ln.split("\t") for ln in lines]
+    for f in rows:
+        m = re.match(r"(\d+)S", f[5])
+        if m:
+            shift[f[0]] = int(m.group(1))
+            f[3] = str(int(f[3]) + shift[f[0]])
+    for f in rows:
+        if f[0] in shift and not re.match(r"\d+S", f[5]):
+            f[7] = str(int(f[7]) + shift[f[0]])
+    return ["\t".join(f) for f in rows]
+
+
+def make_five_step_fixture(workdir: str, ref: dict, n_reads: int = FIVE_STEP_READS,
+                           n_dups: int = 2_000, contigs=SLICE_CONTIGS) -> dict:
+    """bench.py's 5-step input: ``n_reads - n_dups`` reads (samgen, seed
+    11) from the planted genome, soft-clipped ones realigned (see
+    realign_soft_clips), then ``n_dups`` duplicate reads: copies of
+    sampled pairs under Illumina qnames, the second copy of each within
+    optical distance of the first (bench.py:59-71). Known sites: the
+    planted SNPs, as BED through the port's bed-to-elsites. Returns
+    {"sam", "sites", "n_reads"}."""
+    import random
+
+    import samgen
+
+    from elprep_tpu_torch import cli
+
+    lines = realign_soft_clips(samgen.reads_from_genome(
+        n_reads - n_dups, contigs, ref["alt"], seed=11, rg_ids=["rg1"]))
+    rng = random.Random(13)
+    dups = []
+    while len(dups) + 4 <= n_dups:
+        idx = rng.randrange(0, len(lines) // 2) * 2
+        f = lines[idx].split("\t")
+        m = lines[idx + 1].split("\t")
+        x, y = rng.randrange(1000, 30000), rng.randrange(1000, 30000)
+        for k in range(2):
+            q = (f"M01:1:FC:1:2208:{x + k * rng.randrange(0, 80)}:"
+                 f"{y + k * rng.randrange(0, 80)}")
+            dups.append("\t".join([q] + f[1:]))
+            dups.append("\t".join([q] + m[1:]))
+    sam = os.path.join(workdir, "five_step.sam")
+    with open(sam, "w") as fh:
+        fh.write("\n".join(_header(contigs) + lines + dups) + "\n")
+    bed = os.path.join(workdir, "snps.bed")
+    with open(bed, "w") as fh:
+        fh.writelines(f"{name}\t{p}\t{p + 1}\n" for name, p in ref["snps"])
+    sites = os.path.join(workdir, "snps.elsites")
+    if cli.main(["bed-to-elsites", bed, sites]) != 0:
+        raise AssertionError("bed-to-elsites failed")
+    return {"sam": sam, "sites": sites, "n_reads": len(lines) + len(dups)}
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: the three torch device programs at the slice's size
+# ---------------------------------------------------------------------------
+
+
+# (name, file of the port, what it replaces in the JAX package)
+DEVICE_OPS = (
+    ("mark_duplicates", "elprep_tpu_torch/ops/dedup.py", "elprep_tpu/ops/dedup.py:76"),
+    ("recalibrate_tables", "elprep_tpu_torch/ops/bqsr_ops.py",
+     "elprep_tpu/ops/bqsr_ops.py:205 (packed entry :234)"),
+    ("apply_bqsr", "elprep_tpu_torch/ops/bqsr_ops.py", "elprep_tpu/ops/bqsr_ops.py:254"),
+)
+
+
+def _host_median_ms(fn, reps: int) -> float:
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    times.sort()
+    return times[len(times) // 2]
+
+
+def _nbytes(*arrays) -> int:
+    import numpy as np
+
+    return int(sum(np.asarray(a).nbytes for a in arrays))
+
+
+def _to_cuda(*arrays):
+    import numpy as np
+    import torch
+
+    return [torch.as_tensor(np.ascontiguousarray(a)).cuda() for a in arrays]
+
+
+def _same(name: str, got, want) -> None:
+    import numpy as np
+
+    got, want = np.asarray(got), np.asarray(want)
+    if got.shape != want.shape or not np.array_equal(got, want):
+        bad = int((got != want).sum()) if got.shape == want.shape else -1
+        raise AssertionError(f"{name}: card differs from its host twin "
+                             f"({bad} elements of {want.size})")
+
+
+def _profile_top(name: str, fn, top: int = 6) -> dict:
+    """One warm call of ``fn`` under torch.profiler: the device's busy
+    time (the sum of its kernels' times), the call's wall, and the
+    kernels that took the most of it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [(e.key, e.count, getattr(e, "self_device_time_total",
+                                         getattr(e, "self_cuda_time_total", 0)) / 1e3)
+               for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kernels.sort(key=lambda k: -k[2])
+    busy_ms = sum(k[2] for k in kernels)
+    _log("%s profile: %d kernel launches, device busy %.4f ms of %.4f ms wall "
+         "(%.1f%%); top: %s" % (
+             name, sum(k[1] for k in kernels), busy_ms, wall_ms,
+             100.0 * busy_ms / wall_ms,
+             "; ".join("%s x%d %.4f ms" % (k[0][:60], k[1], k[2]) for k in kernels[:top])))
+    return {"launches": sum(k[1] for k in kernels), "busy_ms": busy_ms, "wall_ms": wall_ms}
+
+
+def device_ops_phase(fx: dict, elfasta: str, max_cycle: int = 500,
+                     reps: int = 10) -> dict:
+    """Duplicate mask, BQSR tables and recalibrated quals of the 5-step
+    fixture on the card, each bit-equal to its host twin (the numpy/native
+    engines of the CPU route) on the same inputs, with the card's time
+    (CUDA events, inputs already on the card), the host twin's time and
+    the bytes bound. Returns {name: numbers}."""
+    import numpy as np
+
+    from elprep_tpu_torch import native
+    from elprep_tpu_torch.filters import add_refid
+    from elprep_tpu_torch.filters import bqsr as fb
+    from elprep_tpu_torch.io import sam as samio
+    from elprep_tpu_torch.io.fasta import MappedFasta, RefIndex
+    from elprep_tpu_torch.ops import bqsr_ops, dedup, packed, sortkeys
+
+    hdr, batch = samio.read_sam_file(fx["sam"])
+    add_refid(hdr)(batch)
+    n = len(batch)
+    out = {}
+
+    # duplicate mask: the derived columns agree between the card's
+    # readstats ops and the native engine, then the mask itself
+    libid, upos, score, rev = dedup.dedup_columns(batch, hdr, device="cuda")
+    for a, b in zip((libid, upos, score, rev), dedup.dedup_columns(batch, hdr, device="cpu")):
+        _same("dedup columns", a, b)
+    cols = [np.asarray(c, np.int32) for c in (
+        libid, batch.temps["REFID"], upos, rev, score, sortkeys.qname_ranks(batch.qname),
+        batch.flag)]
+    dcols = _to_cuda(*cols)
+    got = dedup.mark_duplicates(*dcols, device="cuda")
+    want = dedup.mark_duplicates_host(*cols)
+    _same("mark_duplicates", got.cpu().numpy(), want)
+    out["mark_duplicates"] = dict(
+        rows=n, ms=_median_ms(lambda: dedup.mark_duplicates(*dcols, device="cuda"), reps),
+        host_ms=_host_median_ms(lambda: dedup.mark_duplicates_host(*cols), 3),
+        bytes=_nbytes(*cols) + n, note="%d duplicates" % int(want.sum()))
+
+    # table build: one slice of the packed inputs, as the filter ships it
+    recal = fb.BaseRecalibrator([fx["sites"]], RefIndex(MappedFasta(elfasta)))
+    prep = fb.prep_recalibrate_columns(recal, hdr, batch, None, max_cycle)
+    slices = list(fb._iter_prep_slices([prep], max_rows=1 << 17))
+    if len(slices) != 1:
+        raise AssertionError(f"{prep['n_real']} reads took {len(slices)} slices")
+    sl = slices[0]
+    classes = recal.ref.classes
+    n_rg = 1
+    bp, lut = packed.pack_nibble_dict(sl["base"])
+    table_host = (bp, lut, sl["qual"], sl["seq_len"], sl["flag"], sl["pos"], sl["rg"],
+               sl["refoff"], packed.pack_bits(sl["skip"]), sl["op_class"], sl["op_len"],
+               classes)
+    table_in = _to_cuda(*table_host)
+    width = sl["base"].shape[1]
+
+    def build():
+        return bqsr_ops.recalibrate_tables_packed(
+            *table_in, max_cycle=max_cycle, n_rg=n_rg, width=width, device="cuda")
+
+    got = build()
+    want, want_mac = native.bqsr_covariate_tables(sl, classes, max_cycle, n_rg)
+    for g, w in zip(got[:6], want):
+        _same("recalibrate_tables", g.cpu().numpy(), w)
+    if int(got[6]) != want_mac:
+        raise AssertionError(f"max |cycle| {int(got[6])} != {want_mac}")
+    out["recalibrate_tables"] = dict(
+        rows=int(sl["m"]), ms=_median_ms(build, reps),
+        host_ms=_host_median_ms(
+            lambda: native.bqsr_covariate_tables(sl, classes, max_cycle, n_rg), 3),
+        bytes=_nbytes(*table_host, *want),
+        note="%d real reads of %d rows, width %d" % (prep["n_real"], sl["m"], width))
+
+    # apply: the tables just built, finalized, over the whole batch
+    tables = fb.BaseRecalibratorTables.zeros(["unit1"], max_cycle)
+    for key, w in zip(("qs_obs", "qs_mism", "cyc_obs", "cyc_mism", "ctx_obs", "ctx_mism"),
+                      want):
+        getattr(tables, key)[:] = w.reshape(getattr(tables, key).shape)
+    tables.finalize()
+    cond_prior, d_cyc, d_ctx, rg_present = fb.build_apply_tables(tables)
+    _, quant = tables.quantization(0)
+    sqq = np.arange(255, dtype=np.uint8)
+    width = ((int(batch.qual.lengths.max()) + 31) // 32) * 32
+    qual_padded, qual_len = batch.qual.to_padded(width)
+    base_padded, _ = batch.seq.to_padded(width)
+    apply_host = (base_padded, qual_padded, qual_len.astype(np.int32), batch.flag,
+               np.zeros(n, np.int32), rg_present, cond_prior, d_cyc, d_ctx, quant, sqq)
+    apply_in = _to_cuda(*apply_host)
+
+    def apply():
+        return bqsr_ops.apply_bqsr(*apply_in, max_cycle=max_cycle, device="cuda")
+
+    newq, mac = apply()
+    want_q, want_mac = native.bqsr_apply_quals(*apply_host, max_cycle)
+    _same("apply_bqsr", newq.cpu().numpy(), want_q)
+    if int(mac) != want_mac:
+        raise AssertionError(f"apply max |cycle| {int(mac)} != {want_mac}")
+    out["apply_bqsr"] = dict(
+        rows=n, ms=_median_ms(apply, reps),
+        host_ms=_host_median_ms(lambda: native.bqsr_apply_quals(*apply_host, max_cycle), 3),
+        bytes=_nbytes(*apply_host, want_q), note="width %d" % width)
+
+    for name, fn in (("mark_duplicates",
+                      lambda: dedup.mark_duplicates(*dcols, device="cuda")),
+                     ("recalibrate_tables", build), ("apply_bqsr", apply)):
+        out[name]["profile"] = _profile_top(name, fn)
+    for name, d in out.items():
+        d["bound_ms"] = d["bytes"] / PEAK_BYTES_PER_S * 1e3
+        _log("%s: %d rows (%s), bit-equal to its host twin; card %.4f ms median of "
+             "%d, host twin %.2f ms median of 3, bound %.4f ms (%d bytes), %.1fx off it"
+             % (name, d["rows"], d["note"], d["ms"], reps, d["host_ms"], d["bound_ms"],
+                d["bytes"], d["ms"] / d["bound_ms"]))
+    return out
+
+
+class _ProgramCounter:
+    """Counts the calls of the three torch device programs that run on
+    cuda during one run, and their device time (CUDA events around each
+    outermost call: the packed table build calls the dense one)."""
+
+    def __init__(self):
+        from elprep_tpu_torch.ops import bqsr_ops, dedup
+
+        self.targets = [(dedup, "mark_duplicates", "mark_duplicates"),
+                        (bqsr_ops, "recalibrate_tables_packed", "recalibrate_tables"),
+                        (bqsr_ops, "recalibrate_tables", "recalibrate_tables"),
+                        (bqsr_ops, "apply_bqsr", "apply_bqsr")]
+        self.orig = [getattr(mod, attr) for mod, attr, _ in self.targets]
+        self.calls = {name: 0 for _, _, name in self.targets}
+        self.events = {name: [] for _, _, name in self.targets}
+        self.depth = [0]
+
+    @staticmethod
+    def on_card(device) -> bool:
+        from elprep_tpu_torch import device as _device
+
+        return _device.resolve(device).type == "cuda"
+
+    def __enter__(self):
+        import torch
+
+        def wrap(fn, name):
+            def counted(*a, **k):
+                if self.depth[0] or not self.on_card(k.get("device")):
+                    return fn(*a, **k)
+                self.depth[0] += 1
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    e1.record()
+                    self.events[name].append((e0, e1))
+                    self.calls[name] += 1
+                    self.depth[0] -= 1
+            return counted
+
+        for (mod, attr, name), fn in zip(self.targets, self.orig):
+            setattr(mod, attr, wrap(fn, name))
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, attr, _), fn in zip(self.targets, self.orig):
+            setattr(mod, attr, fn)
+        return False
+
+    def device_s(self, name: str) -> float:
+        import torch
+
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.events[name]) / 1e3
+
+
+class _StderrTee:
+    """Copies what a run writes to stderr (the --timed phase lines)."""
+
+    def __enter__(self):
+        import io
+
+        self.buf = io.StringIO()
+        self.orig = sys.stderr
+        tee, buf = self.orig, self.buf
+
+        class _Tee:
+            def write(self, s):
+                tee.write(s)
+                buf.write(s)
+
+            def flush(self):
+                tee.flush()
+        sys.stderr = _Tee()
+        return self
+
+    def __exit__(self, *exc):
+        sys.stderr = self.orig
+        return False
+
+    def phases(self) -> list:
+        """[(phase message, seconds)] from the --timed lines."""
+        out, msg = [], None
+        for ln in self.buf.getvalue().splitlines():
+            if ln.startswith("  done in ") and msg is not None:
+                out.append((msg, float(ln.split()[2].rstrip("s"))))
+                msg = None
+            elif not ln.startswith(" "):
+                msg = ln.strip()
+        return out
+
+
+def _zero_pairhmm_counts():
+    from elprep_tpu_torch.ops import pairhmm_cuda as pc
+
+    pc.LAUNCHES = 0
+    pc.LAUNCHES_BY_PATH.update({k: 0 for k in pc.LAUNCHES_BY_PATH})
+
+
+def _pairhmm_counts(what: str) -> tuple:
+    from elprep_tpu_torch.ops import pairhmm_cuda as pc
+
+    launches, by_path = pc.LAUNCHES, dict(pc.LAUNCHES_BY_PATH)
+    if launches <= 0:
+        raise AssertionError(f"the {what} run launched no PairHMM kernel")
+    if by_path["warp"] != launches:
+        raise AssertionError(f"{what} launches off the warp path: {by_path}")
+    return launches, by_path
+
+
+def _gvcf_records(path: str) -> tuple:
+    import gzip
+
+    with gzip.open(path, "rb") as fh:
+        vcf = fh.read()
+    records = [ln for ln in vcf.split(b"\n") if ln and not ln.startswith(b"#")]
+    variants = [ln for ln in records if ln.split(b"\t")[4] != b"<NON_REF>"]
+    return records, variants
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: the 5-step filter at real size
+# ---------------------------------------------------------------------------
+
+
+def five_step_phase(workdir: str, fx: dict, elfasta: str) -> dict:
+    """``filter --mark-duplicates --mark-optical-duplicates
+    --sorting-order coordinate --bqsr --known-sites --haplotypecaller
+    --reference-confidence GVCF`` (bench.py's command) through the port's
+    CLI on cuda, with the device programs' and PairHMM launch counts of
+    that run."""
+    import numpy as np
+
+    from elprep_tpu_torch import cli
+    from elprep_tpu_torch.filters import add_refid
+    from elprep_tpu_torch.io import sam as samio
+
+    out_bam = os.path.join(workdir, "five_step.bam")
+    metrics = os.path.join(workdir, "five_step.metrics.txt")
+    recal = os.path.join(workdir, "five_step.recal")
+    out_vcf = os.path.join(workdir, "five_step.vcf.gz")
+    args = ["filter", fx["sam"], out_bam, "--mark-duplicates",
+            "--mark-optical-duplicates", metrics, "--sorting-order", "coordinate",
+            "--bqsr", recal, "--known-sites", fx["sites"], "--reference", elfasta,
+            "--haplotypecaller", out_vcf, "--reference-confidence", "GVCF", "--timed"]
+    _zero_pairhmm_counts()
+    with _ProgramCounter() as ops, _PairHMMTimer() as tm, _StderrTee() as err:
+        t0 = time.perf_counter()
+        rc = cli.main(args)
+        wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"5-step run failed: rc {rc}")
+    launches, by_path = _pairhmm_counts("5-step")
+    for name, calls in ops.calls.items():
+        if calls <= 0:
+            raise AssertionError(f"the 5-step run did not run {name} on the card")
+
+    n_reads = fx["n_reads"]
+    hdr, batch = samio.read_sam_file(out_bam)
+    if len(batch) != n_reads or hdr.hd_so().value != "coordinate":
+        raise AssertionError(f"5-step BAM: {len(batch)} records, SO {hdr.hd_so()}")
+    add_refid(hdr)(batch)
+    refid = batch.temps["REFID"].astype(np.int64)
+    key = np.where(refid < 0, np.iinfo(np.int64).max, refid * 2**33 + batch.pos)
+    if not (np.diff(key) >= 0).all():
+        raise AssertionError("5-step BAM is not coordinate-sorted")
+    n_dup = int(((batch.flag & 0x400) != 0).sum())
+    if n_dup <= 0:
+        raise AssertionError("5-step run flagged no duplicates")
+    with open(metrics, "rb") as fh:
+        rows = [ln.split(b"\t") for ln in fh.read().split(b"\n") if ln.startswith(b"lib1\t")]
+    optical = int(rows[0][7]) if len(rows) == 1 else 0
+    if optical <= 0:
+        raise AssertionError(f"5-step metrics show no optical duplicates: {rows}")
+    with open(recal, "rb") as fh:
+        report = fh.read()
+    table0 = report[report.index(b"#:GATKTable:RecalTable0:"):].split(b"\n")[2]
+    if not table0.startswith(b"unit1 "):
+        raise AssertionError(f"recal file has no read-group row: {table0!r}")
+    records, variants = _gvcf_records(out_vcf)
+    if not variants:
+        raise AssertionError("5-step GVCF has no ALT calls")
+    phases = err.phases()
+    device_s = {name: ops.device_s(name) for name in ops.calls}
+    kernel_s = tm.kernel_s()
+    _log("5-step: %d reads in %.2f s = %.0f reads/s; %d duplicates flagged, %d "
+         "optical pairs; RecalTable0 %s; GVCF %d records (%d with an ALT besides "
+         "<NON_REF>)" % (n_reads, wall, n_reads / wall, n_dup, optical,
+                         b" ".join(table0.split()).decode(), len(records), len(variants)))
+    _log("5-step phases (--timed): " + "; ".join("%s %.2f s" % p for p in phases))
+    _log("5-step device programs on the card: " + "; ".join(
+        "%s %d calls, %.4f s device" % (k, ops.calls[k], device_s[k]) for k in ops.calls))
+    _log("5-step PairHMM: %d launches (per path %s), %d pairs; %.2f s wall in the "
+         "PairHMM (%.1f%% of the run): host packing %.2f s, kernel %.4f s on the device"
+         % (launches, json.dumps(by_path), tm.pairs, tm.total_s,
+            100.0 * tm.total_s / wall, tm.pack_s, kernel_s))
+    return {"launches": launches, "launches_by_path": by_path, "wall_s": wall,
+            "phases": phases, "calls": dict(ops.calls), "device_s": device_s}
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the earlier slice (sort + HaplotypeCaller), at reduced depth
+# ---------------------------------------------------------------------------
 
 
 class _PairHMMTimer:
@@ -456,16 +984,16 @@ class _PairHMMTimer:
         return sum(a.elapsed_time(b) for a, b in self.events) / 1e3
 
 
-def slice_phase(workdir: str, n_reads: int = SLICE_READS,
+def slice_phase(workdir: str, ref: dict, n_reads: int = SLICE_READS,
                 contigs=SLICE_CONTIGS) -> dict:
-    import gzip
-
+    """``filter --sorting-order coordinate --haplotypecaller
+    --reference-confidence GVCF`` on ``n_reads`` reads."""
     from elprep_tpu_torch import cli
     from elprep_tpu_torch.io import sam as samio
-    from elprep_tpu_torch.ops import pairhmm_cuda as pc
 
     t0 = time.perf_counter()
-    sam, elfasta = make_slice_fixture(workdir, n_reads, contigs)
+    sam = make_slice_fixture(workdir, ref, n_reads, contigs)
+    elfasta = ref["elfasta"]
     _log("slice fixture: %d reads over %d bp in %.1f s"
          % (n_reads, sum(n for _, n in contigs), time.perf_counter() - t0))
     out_bam = os.path.join(workdir, "slice.bam")
@@ -473,27 +1001,18 @@ def slice_phase(workdir: str, n_reads: int = SLICE_READS,
     args = ["filter", sam, out_bam, "--sorting-order", "coordinate",
             "--reference", elfasta, "--haplotypecaller", out_vcf,
             "--reference-confidence", "GVCF", "--timed"]
-    pc.LAUNCHES = 0
-    pc.LAUNCHES_BY_PATH.update({k: 0 for k in pc.LAUNCHES_BY_PATH})
+    _zero_pairhmm_counts()
     with _PairHMMTimer() as tm:
         t0 = time.perf_counter()
         rc = cli.main(args)
         wall = time.perf_counter() - t0
-    launches = pc.LAUNCHES
-    by_path = dict(pc.LAUNCHES_BY_PATH)
     if rc != 0:
         raise AssertionError(f"slice run failed: rc {rc}")
-    if launches <= 0:
-        raise AssertionError("the slice run launched no PairHMM kernel")
-    if by_path["warp"] != launches:
-        raise AssertionError(f"slice launches off the warp path: {by_path}")
+    launches, by_path = _pairhmm_counts("slice")
     hdr, batch = samio.read_sam_file(out_bam)
     if len(batch) != n_reads or hdr.hd_so().value != "coordinate":
         raise AssertionError(f"slice BAM: {len(batch)} records, SO {hdr.hd_so()}")
-    with gzip.open(out_vcf, "rb") as fh:
-        vcf = fh.read()
-    records = [ln for ln in vcf.split(b"\n") if ln and not ln.startswith(b"#")]
-    variants = [ln for ln in records if ln.split(b"\t")[4] != b"<NON_REF>"]
+    records, variants = _gvcf_records(out_vcf)
     if not records:
         raise AssertionError("slice VCF has no records")
     kernel_s = tm.kernel_s()
@@ -536,16 +1055,33 @@ def main() -> int:
     _log(smi)
     _log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {kind}")
 
+    t_start = time.perf_counter()
     build_phase()
     kernel = kernel_phase()
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         golden_phase(workdir)
-        run = slice_phase(workdir)
+        t0 = time.perf_counter()
+        ref = make_reference(workdir)
+        fx = make_five_step_fixture(workdir, ref)
+        _log("5-step fixture: %d reads over %d bp, %d known sites, in %.1f s"
+             % (fx["n_reads"], sum(n for _, n in SLICE_CONTIGS), len(ref["snps"]),
+                time.perf_counter() - t0))
+        ops = device_ops_phase(fx, ref["elfasta"])
+        five = five_step_phase(workdir, fx, ref["elfasta"])
+        earlier = slice_phase(workdir, ref)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    kernel["launches"] = run["launches"]
-    kernel["launches_by_path"] = run["launches_by_path"]
+    print(json.dumps({"device_ops": [
+        {"name": name, "route": "torch", "source": source, "replaces": replaces,
+         "launches": five["calls"][name], "slice_device_s": five["device_s"][name],
+         "ms": ops[name]["ms"], "host_ms": ops[name]["host_ms"],
+         "bound_ms": ops[name]["bound_ms"], "bound_by": "bytes", "rows": ops[name]["rows"]}
+        for name, source, replaces in DEVICE_OPS]}), flush=True)
+    kernel["launches"] = five["launches"]
+    kernel["launches_by_path"] = five["launches_by_path"]
+    kernel["launches_sort_hc"] = earlier["launches"]
+    _log("smoke: %.1f s wall" % (time.perf_counter() - t_start))
     print(json.dumps({"kernels": [kernel]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

@@ -1,11 +1,13 @@
 """Command-line interface of the port (reference: main.go, cmd/filter.go,
 cmd/convert.go; the JAX package's elprep_tpu/cli.py).
 
-Subcommands: ``filter`` and ``fasta-to-elfasta``. ``filter`` runs the
-in-memory pipeline (parse -> filters -> sort -> write -> HaplotypeCaller)
-and the constant-memory streaming path. Options that reach modules not
-yet ported (duplicate marking, BQSR, sharding, spread files, directory
-inputs) and the other subcommands are refused by name; none is ignored.
+Subcommands: ``filter``, ``vcf-to-elsites``, ``bed-to-elsites`` and
+``fasta-to-elfasta``. ``filter`` runs the in-memory 5-step pipeline
+(parse -> filters + duplicate marking -> sort -> optical duplicates ->
+BQSR -> write -> HaplotypeCaller) and the constant-memory streaming
+path. Options that reach modules not yet ported (sharding, spread files,
+directory inputs) and the other subcommands are refused by name; none is
+ignored.
 
 The compute device is ``cuda`` unless ``ELPREP_TPU_TORCH_DEVICE`` names
 another (``cpu``). Asking for ``cuda`` without a card fails before any
@@ -28,23 +30,11 @@ _PHASE = [0]
 
 # filter options whose modules are not ported yet: (argparse dest, flag)
 _NOT_PORTED = (
-    ("mark_duplicates", "--mark-duplicates"),
-    ("mark_optical_duplicates", "--mark-optical-duplicates"),
-    ("mark_optical_duplicates_intermediate",
-     "--mark-optical-duplicates-intermediate"),
-    ("bqsr", "--bqsr"),
-    ("bqsr_tables_only", "--bqsr-tables-only"),
-    ("bqsr_apply", "--bqsr-apply"),
-    ("recal_file", "--recal-file"),
-    ("known_sites", "--known-sites"),
-    ("quantize_levels", "--quantize-levels"),
-    ("sqq", "--sqq"),
     ("sharded", "--sharded"),
     ("spread_file", "--spread-file"),
 )
 _NOT_PORTED_COMMANDS = ("split", "merge", "sfm",
-                        "merge-optical-duplicates-metrics", "vcf-to-elsites",
-                        "bed-to-elsites")
+                        "merge-optical-duplicates-metrics")
 
 
 class NotPorted(ValueError):
@@ -174,7 +164,11 @@ def filter_command(argv: List[str]) -> int:
     from .core.pipeline import SamData, run_pipeline
     from .io import sam as samio
     from .filters import simple as fsimple
-    from .io.fasta import MappedFasta
+    from .filters.markdup import MarkDuplicatesState, mark_duplicates_filter
+    from .filters import optical as foptical
+    from .filters import bqsr as fbqsr
+    from .filters import bqsr_report
+    from .io.fasta import MappedFasta, RefIndex
     from .io import bed as bedio
     from .io import intervals as iv
 
@@ -197,10 +191,23 @@ def filter_command(argv: List[str]) -> int:
         from . import pedantic
 
         pedantic.set_pedantic(True)
+    want_bqsr = bool(args.bqsr or args.bqsr_tables_only)
     want_hc = bool(args.haplotypecaller)
+    if (want_bqsr or args.bqsr_apply) and not args.reference:
+        print("error: --reference required for BQSR", file=sys.stderr)
+        return 2
     if want_hc and not args.reference:
         print("error: --reference required for --haplotypecaller", file=sys.stderr)
         return 2
+    if not (want_bqsr or args.bqsr_apply):
+        # (reference: checkNonBQSROptions, cmd/util.go:183-194)
+        for flag_name, is_set in (("--quantize-levels", args.quantize_levels != 0),
+                                  ("--sqq", bool(args.sqq)),
+                                  ("--known-sites", bool(args.known_sites))):
+            if is_set:
+                print(f"Warning: The {flag_name} optional flag is set without "
+                      "using --bqsr. This parameter is ignored because base "
+                      "recalibration is not requested.", file=sys.stderr)
 
     # filters1 construction mirrors cmd/filter.go:691-780
     filters1: List = []
@@ -231,10 +238,14 @@ def filter_command(argv: List[str]) -> int:
 
         filters1.append(fsimple.add_or_replace_read_group(
             parse_header_line_from_string(args.replace_read_group)))
-    if (args.replace_reference_sequences
+    if (args.replace_reference_sequences or args.mark_duplicates
             or sorting_order in (SortingOrder.COORDINATE, SortingOrder.QUERYNAME)
-            or want_hc):
+            or want_bqsr or args.bqsr_apply or want_hc):
         filters1.append(fsimple.add_refid)
+    md_state = None
+    if args.mark_duplicates:
+        md_state = MarkDuplicatesState()
+        filters1.append(mark_duplicates_filter(state=md_state, device=dev))
     filters1.append(fsimple.remove_optional_reads)
 
     filters2: List = []
@@ -264,15 +275,18 @@ def filter_command(argv: List[str]) -> int:
 
     set_randomized_qd(args.randomized_qd)
 
+    bed_obj = None
     bed_regions = None
     if args.target_regions:
-        bed_regions = iv.from_bed(bedio.parse_bed(args.target_regions))
+        bed_obj = bedio.parse_bed(args.target_regions)
+        bed_regions = iv.from_bed(bed_obj)
         for c in list(bed_regions):
             bed_regions[c] = iv.flatten(iv.sort_by_start(bed_regions[c]))
 
     # Streaming path (reference: runBestPracticesPipeline,
-    # cmd/filter.go:328-341): no sort and no HC -> constant memory
+    # cmd/filter.go:328-341): no sort/dedup/BQSR/HC -> constant memory
     if (sorting_order in (SortingOrder.KEEP, SortingOrder.UNKNOWN, SortingOrder.UNSORTED)
+            and not args.mark_duplicates and not want_bqsr and not args.bqsr_apply
             and not want_hc and args.output not in ("/dev/null", "/dev/zero")):
         _timed(args.timed, "Running pipeline.",
                lambda: _streaming_phase(args, filters1 + filters2, sorting_order),
@@ -287,10 +301,101 @@ def filter_command(argv: List[str]) -> int:
     data = _timed(args.timed, "Reading SAM into memory and applying filters.",
                   read_phase, args.profile)
 
+    # Phase 2: optical duplicates — host numpy over a snapshot of the
+    # post-dedup batch, independent of BQSR, so when a table build
+    # follows it runs in a thread beside it. It touches no CUDA state:
+    # the card is driven from this thread only.
+    optical_future = None
+    if args.mark_optical_duplicates or args.mark_optical_duplicates_intermediate:
+        def optical_phase(ob=data.batch, oh=data.header):
+            from .filters.markdup import aux_from_temps
+
+            aux = aux_from_temps(ob) or (md_state.aux if md_state else None)
+            ctrs = foptical.mark_optical_duplicates(
+                ob, oh, aux,
+                pixel_distance=args.optical_duplicates_pixel_distance)
+            if args.mark_optical_duplicates:
+                foptical.print_duplicates_metrics(
+                    args.mark_optical_duplicates, command_line, ctrs)
+            else:
+                foptical.save_metrics_intermediate(
+                    args.mark_optical_duplicates_intermediate, ctrs)
+
+        if want_bqsr:
+            from concurrent.futures import ThreadPoolExecutor
+
+            _optical_pool = ThreadPoolExecutor(max_workers=1)
+            optical_future = _optical_pool.submit(optical_phase)
+            _optical_pool.shutdown(wait=False)
+            if args.timed:
+                print("Marking optical duplicates (overlapped with "
+                      "recalibration).")
+        else:
+            _timed(args.timed, "Marking optical duplicates.", optical_phase,
+                   args.profile)
+
     post_sort = sorting_order
     if post_sort != SortingOrder.UNSORTED:
         post_sort = SortingOrder.KEEP
     mapped_fasta = MappedFasta(args.reference) if args.reference else None
+    ref_index = RefIndex(mapped_fasta) if mapped_fasta is not None else None
+
+    # Phase 3-5: BQSR, its tables built and applied on the session device
+    recal_file = args.bqsr or args.bqsr_tables_only
+    sqq = [int(v) for v in args.sqq.split(",") if v]
+    if recal_file:
+        known = [v for v in args.known_sites.split(",") if v]
+        recal = fbqsr.BaseRecalibrator(known, ref_index)
+        if bed_obj is not None:
+            data.batch = run_pipeline(
+                data, [fsimple.remove_non_overlapping_reads(bed_obj)],
+                post_sort, device=dev).batch
+        try:
+            tables = _timed(args.timed, "Base recalibration.",
+                            lambda: recal.recalibrate(data.header, data.batch,
+                                                      args.max_cycle, device=dev),
+                            args.profile)
+        except BaseException:
+            # report the overlapped optical thread before the recal
+            # error propagates, so it does not fail invisibly
+            if optical_future is not None:
+                from concurrent.futures import wait as _fwait
+
+                _fwait([optical_future])
+                exc = optical_future.exception()
+                if exc is not None:
+                    print(f"elprep_tpu_torch: optical duplicate marking also "
+                          f"failed: {exc}", file=sys.stderr)
+            raise
+        if optical_future is not None:
+            optical_future.result()  # re-raises optical failures
+        os.makedirs(os.path.dirname(os.path.abspath(recal_file)) or ".", exist_ok=True)
+        if args.bqsr_tables_only and not args.bqsr:
+            # raw (pre-finalize) intermediate tables for later combining
+            # (reference: print-bqsr.go:301-329 writes gob tables)
+            bqsr_report.save_intermediate(tables, recal_file)
+        else:
+            tables.finalize()
+            bqsr_report.print_bqsr_tables(tables, recal_file,
+                                          prefix=args.bqsr_tablename_prefix)
+        if args.bqsr:  # apply unless tables-only
+            def apply_phase():
+                return run_pipeline(
+                    data, [fbqsr.apply_bqsr_filter(tables, args.quantize_levels, sqq,
+                                                   args.max_cycle, device=dev)],
+                    post_sort, device=dev)
+
+            data = _timed(args.timed, "Apply BQSR.", apply_phase, args.profile)
+    elif args.bqsr_apply:
+        tables = bqsr_report.load_and_combine_bqsr_tables(args.bqsr_apply)
+        tables.finalize()
+        if args.recal_file:
+            bqsr_report.print_bqsr_tables(tables, args.recal_file,
+                                          prefix=args.bqsr_tablename_prefix)
+        data = run_pipeline(
+            data, [fbqsr.apply_bqsr_filter(tables, args.quantize_levels, sqq,
+                                           args.max_cycle, device=dev)],
+            post_sort, device=dev)
 
     # remaining pipeline (cmd/filter.go:66-140)
     pending_write = []
@@ -497,6 +602,43 @@ def _run_haplotypecaller(args, data, mapped_fasta, bed_regions, command_line,
             f.write(str(params.random.reflect_seed()))
 
 
+def vcf_to_elsites(argv: List[str]) -> int:
+    """(reference: cmd/convert.go:35-100)"""
+    from .io import intervals as iv
+    from .io import vcf as vcfmod
+
+    p = argparse.ArgumentParser(prog="elprep_tpu_torch vcf-to-elsites")
+    p.add_argument("vcf")
+    p.add_argument("elsites")
+    args = p.parse_args(argv)
+    with open(args.vcf, "rb") as f:
+        data = f.read()
+    if data[:1] == b"\x1f":
+        from .io import bgzf
+
+        data = bgzf.decompress(data)
+    by_chrom = vcfmod.scan_vcf_sites(data)
+    ivals = {c: iv.flatten(iv.sort_by_start(iv.make([s for s, _ in xs],
+                                                    [e for _, e in xs])))
+             for c, xs in by_chrom.items()}
+    iv.to_elsites_file(ivals, args.elsites)
+    return 0
+
+
+def bed_to_elsites(argv: List[str]) -> int:
+    from .io import bed as bedio
+    from .io import intervals as iv
+
+    p = argparse.ArgumentParser(prog="elprep_tpu_torch bed-to-elsites")
+    p.add_argument("bed")
+    p.add_argument("elsites")
+    args = p.parse_args(argv)
+    bed = bedio.parse_bed(args.bed)
+    ivals = {c: iv.flatten(iv.sort_by_start(x)) for c, x in iv.from_bed(bed).items()}
+    iv.to_elsites_file(ivals, args.elsites)
+    return 0
+
+
 def fasta_to_elfasta(argv: List[str]) -> int:
     from .io import fasta as fastaio
 
@@ -516,12 +658,17 @@ def main(argv: Optional[List[str]] = None) -> int:
     _native.tune_malloc()
     if not argv:
         print("elprep_tpu_torch — PyTorch/CUDA secondary-analysis engine\n"
-              "commands: filter, fasta-to-elfasta", file=sys.stderr)
+              "commands: filter, vcf-to-elsites, bed-to-elsites, "
+              "fasta-to-elfasta", file=sys.stderr)
         return 1
     cmd, rest = argv[0], argv[1:]
     try:
         if cmd == "filter":
             return filter_command(rest)
+        if cmd == "vcf-to-elsites":
+            return vcf_to_elsites(rest)
+        if cmd == "bed-to-elsites":
+            return bed_to_elsites(rest)
         if cmd == "fasta-to-elfasta":
             return fasta_to_elfasta(rest)
         if cmd in _NOT_PORTED_COMMANDS:

@@ -10,6 +10,8 @@ import numpy as np
 import pytest
 import torch
 
+from elprep_tpu_torch import native
+from elprep_tpu_torch.ops import bqsr_ops, dedup, packed
 from elprep_tpu_torch.ops import pairhmm, pairhmm_cuda as pc
 
 _BASES = np.frombuffer(b"ACGT", np.uint8)
@@ -205,3 +207,158 @@ def test_wrapper_rejects_mixed_devices(cuda):
     batch = pc.pack_pairs(reads, haps, pair_r, pair_h).to(cuda)
     with pytest.raises(ValueError):
         pc.pairhmm_forward(batch, pc.default_tables("cpu"))
+
+
+# ---------------------------------------------------------------------------
+# duplicate marking and BQSR on the card against their host twins
+# ---------------------------------------------------------------------------
+
+_FLAGS = np.array([0x0, 0x10, 0x1, 0x1 | 0x10, 0x1 | 0x8, 0x1 | 0x20,
+                   0x1 | 0x10 | 0x80, 0x4, 0x1 | 0x4, 0x100, 0x1 | 0x100,
+                   0x800, 0x1 | 0x800, 0x1 | 0x40], np.int32)
+
+
+def _dedup_cols(n, seed):
+    """Dense collisions: few positions, libid and refid -1, tied scores,
+    qnames shared by 1-3 reads, every flag class."""
+    rng = np.random.RandomState(seed)
+    return (rng.randint(-1, 2, n).astype(np.int32),
+            rng.randint(-1, 2, n).astype(np.int32),
+            rng.randint(-2, 2 + n // 100, n).astype(np.int32),
+            rng.randint(0, 2, n).astype(np.int32),
+            (rng.randint(0, 4, n) * 30).astype(np.int32),
+            rng.randint(0, max(1, n // 2), n).astype(np.int32),
+            rng.choice(_FLAGS, n).astype(np.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 7, 1000, 40000])
+def test_dup_mask_on_cuda_equals_host_twin(cuda, n):
+    cols = _dedup_cols(n, n)
+    got = dedup.mark_duplicates(*cols, device=cuda)
+    assert got.device.type == "cuda" and got.shape == (n,)
+    want = dedup.mark_duplicates_host(*cols)
+    assert got.cpu().numpy().tolist() == want.tolist()
+    if n >= 1000:
+        assert want.any()
+
+
+def _table_slice(rng, m, ragged=True):
+    L = int(rng.randint(4, 160))
+    C = int(rng.randint(1, 6))
+    n_rg = int(rng.randint(1, 4))
+    ref_len = int(rng.randint(200, 4000))
+    return dict(
+        m=m,
+        base=rng.choice(np.frombuffer(b"ACGTNacgt*", np.uint8), (m, L)).astype(np.uint8),
+        qual=rng.randint(0, 100, (m, L)).astype(np.uint8),
+        skip=rng.rand(m, L) < 0.2,
+        seq_len=(rng.randint(0, L + 1, m) if ragged else np.full(m, L)).astype(np.int32),
+        flag=rng.randint(0, 256, m).astype(np.int32),
+        pos=rng.randint(1, ref_len, m).astype(np.int32),
+        rg=(rng.randint(0, n_rg + 1, m) - 1).astype(np.int32),
+        refoff=rng.randint(0, max(1, ref_len - 40), m).astype(np.int64),
+        op_class=rng.randint(0, 9, (m, C)).astype(np.int8),
+        op_len=rng.randint(0, L, (m, C)).astype(np.int32),
+    ), rng.randint(0, 5, ref_len).astype(np.uint8), n_rg
+
+
+_ORDER = ("base", "qual", "seq_len", "flag", "pos", "rg", "refoff", "skip",
+          "op_class", "op_len")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,ragged", [(1, False), (1, True), (57, True), (4096, True),
+                                      (3000, False)])
+def test_tables_on_cuda_equal_native(cuda, m, ragged):
+    """Dense and packed table builds on the card against the fused native
+    engine: adversarial cigars, rg = -1 rows, out-of-table quals,
+    cycles past max_cycle."""
+    rng = np.random.RandomState(m * 2 + ragged)
+    for max_cycle in (200, 40):
+        sl, classes, n_rg = _table_slice(rng, m, ragged)
+        want = native.bqsr_covariate_tables(sl, classes, max_cycle, n_rg)
+        assert want is not None, "native lib unavailable"
+        got = bqsr_ops.recalibrate_tables(*(sl[k] for k in _ORDER), classes,
+                                          max_cycle=max_cycle, n_rg=n_rg, device=cuda)
+        assert all(t.device.type == "cuda" for t in got)
+        assert int(got[6]) == want[1]
+        for g, w in zip(got[:6], want[0]):
+            assert g.cpu().numpy().tolist() == w.tolist()
+        if sl["base"].size and packed.pack_nibble_dict(sl["base"]) is not None:
+            bp, lut = packed.pack_nibble_dict(sl["base"])
+            pk = bqsr_ops.recalibrate_tables_packed(
+                bp, lut, *(sl[k] for k in _ORDER[1:7]), packed.pack_bits(sl["skip"]),
+                sl["op_class"], sl["op_len"], classes, max_cycle=max_cycle,
+                n_rg=n_rg, width=sl["base"].shape[1], device=cuda)
+            for g, w in zip(pk, got):
+                assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,ragged", [(1, False), (1, True), (49, True), (5000, True)])
+def test_apply_on_cuda_equals_native(cuda, m, ragged):
+    rng = np.random.RandomState(77 + m)
+    L = int(rng.randint(4, 160))
+    n_rg = int(rng.randint(1, 4))
+    max_cycle = int(rng.randint(8, 200))
+    ncyc = 2 * max_cycle + 1
+    args = (
+        rng.choice(np.frombuffer(b"ACGTNacgt*", np.uint8), (m, L)).astype(np.uint8),
+        rng.randint(0, 100, (m, L)).astype(np.uint8),
+        (rng.randint(0, L + 1, m) if ragged else np.full(m, L)).astype(np.int32),
+        rng.randint(0, 256, m).astype(np.int32),
+        (rng.randint(0, n_rg + 1, m) - 1).astype(np.int32),
+        rng.rand(n_rg) < 0.8,
+        rng.randint(1, 90, (n_rg, 94)).astype(np.int32),
+        rng.randint(-20, 20, (n_rg, 94, ncyc)).astype(np.int32),
+        rng.randint(-20, 20, (n_rg, 94, 17)).astype(np.int32),
+        rng.randint(0, 94, 94).astype(np.uint8),
+        rng.randint(0, 94, 255).astype(np.uint8),
+    )
+    want = native.bqsr_apply_quals(*args, max_cycle)
+    assert want is not None, "native lib unavailable"
+    newq, mac = bqsr_ops.apply_bqsr(*args, max_cycle=max_cycle, device=cuda)
+    assert newq.device.type == "cuda" and newq.dtype == torch.uint8
+    assert int(mac) == want[1]
+    valid = np.arange(L)[None, :] < args[2][:, None]
+    assert newq.cpu().numpy()[valid].tolist() == want[0][valid].tolist()
+
+
+@pytest.mark.cuda
+def test_filters_on_cuda_equal_cpu_route(cuda, tmp_path):
+    """Duplicate marking, the table build and the apply through the
+    port's filters on the card and on its CPU route: the same flags,
+    tables and quals."""
+    import samgen
+    from elprep_tpu_torch.core.pipeline import SamData, run_pipeline
+    from elprep_tpu_torch.filters import add_refid, mark_duplicates_filter
+    from elprep_tpu_torch.filters import bqsr as fb
+    from elprep_tpu_torch.io import sam as samio
+    from elprep_tpu_torch.io.fasta import MappedFasta, RefIndex, to_elfasta
+
+    contigs = [("chr1", 60000), ("chr2", 40000)]
+    genome = samgen.make_genome(contigs, seed=3)
+    elf = str(tmp_path / "ref.elfasta")
+    to_elfasta(genome, elf)
+    header = samgen.make_header_lines(contigs, rgs=[
+        {"ID": "g1", "LB": "lA", "PU": "u1"}, {"ID": "g2", "LB": "lB"}])
+    lines = samgen.reads_from_genome(4000, contigs, genome, seed=5, rg_ids=["g1", "g2"])
+    sam = ("\n".join(header + lines + lines[:600]) + "\n").encode()
+    outs = {}
+    for dev in ("cpu", cuda):
+        hdr, batch = samio.parse_sam(sam)
+        data = run_pipeline(SamData(hdr, batch),
+                            [add_refid, mark_duplicates_filter(device=dev)], device=dev)
+        ref = RefIndex(MappedFasta(elf))
+        tables = fb.BaseRecalibrator([], ref).recalibrate(data.header, data.batch, 500,
+                                                          device=dev)
+        tables.finalize()
+        data = run_pipeline(data, [fb.apply_bqsr_filter(tables, device=dev)], device=dev)
+        outs[str(dev)] = (data.batch.flag.copy(), tables, data.batch.qual.data.copy())
+    (f0, t0, q0), (f1, t1, q1) = outs["cpu"], outs[str(cuda)]
+    assert ((f0 & 0x400) != 0).sum() >= 600
+    assert f1.tolist() == f0.tolist()
+    for k in ("qs_obs", "qs_mism", "cyc_obs", "cyc_mism", "ctx_obs", "ctx_mism"):
+        assert getattr(t1, k).tolist() == getattr(t0, k).tolist(), k
+    assert q1.tolist() == q0.tolist()
