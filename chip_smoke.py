@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (elprep_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --dispatch-ab ROUNDS
 
 Phases, each of which must pass:
 
@@ -18,7 +19,10 @@ Phases, each of which must pass:
    version;
 3. golden: the port's CLI on cuda reproduces the duplicate-marking,
    metrics, BQSR and HaplotypeCaller goldens of tests/fixtures byte for
-   byte;
+   byte (the HaplotypeCaller on the worker pool, started before this
+   phase at the CLI's default size, the CPU count, and checked off the
+   card: every worker on the CPU without a CUDA context, nvidia-smi
+   listing no other process on the card);
 4. device ops: on the 5-step fixture (below), the duplicate mask, the six
    BQSR tables and the recalibrated quals computed on the card are
    bit-equal to their host twins (the CPU route's numpy/native engines),
@@ -28,21 +32,38 @@ Phases, each of which must pass:
    --reference-confidence GVCF`` (bench.py's command) on 120 000 reads
    over a 2 Mb genome (bench.py's fixture shape: 118 000 sampled reads
    from a genome with planted SNPs, the planted SNPs as known sites, and
-   2 000 duplicates with Illumina qnames within optical distance); every
-   record written, coordinate-sorted, duplicates and optical duplicates
-   found, the recal report's read-group row, ALT calls in the GVCF, the
-   device programs run on the card, every PairHMM launch on the warp
-   path; the phase walls of --timed;
-6. slice: the earlier ``filter --sorting-order coordinate
+   2 000 duplicates with Illumina qnames within optical distance), run
+   pooled from cold (the CLI's default worker count, the pool stopped
+   before it, so the wall holds the spawn as a user's single run does),
+   pooled again on the warm pool, and serially
+   (ELPREP_TPU_HC_WORKERS=1); each run: every record written,
+   coordinate-sorted, duplicates and optical duplicates found, the recal
+   report's read-group row, ALT calls in the GVCF, the device programs
+   run on the card, every PairHMM launch on the warp path, the phase
+   walls of --timed, launches and pairs per launch; the pooled runs got
+   one pool, its workers are still off the card, and their BAM records,
+   recal report, metrics body and GVCF body are byte-equal to the serial
+   run's;
+6. sfm: ``sfm`` with the same options, one job at a time in this
+   process, every contig group on the one pool: the BAM records and the
+   GVCF body of the whole-file pooled run;
+7. slice: the earlier ``filter --sorting-order coordinate
    --haplotypecaller --reference-confidence GVCF`` on 30 000 reads, its
    launches again all on the warp path.
 
 Prints the card (nvidia-smi name and power limit), one JSON line with
 the device programs' numbers, one with the kernels' numbers (launches
-from the 5-step run), and as its last line
+from the cold pooled 5-step run, the warm and serial runs' beside them),
+and as its last line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Exits non-zero,
 printing no result, without a CUDA device or outside a checkout of the
 repository. Imports nothing of JAX and nothing of elprep_tpu.
+
+``--dispatch-ab ROUNDS`` runs only the build and the 5-step run, pooled
+on one warm pool, with 1 and 2 PairHMM dispatch threads
+(ELPREP_TPU_PAIRHMM_DISPATCH_WORKERS) in turns, 1 2 then 2 1, for
+ROUNDS rounds, after one untimed run, and prints the walls as its last
+line.
 """
 
 from __future__ import annotations
@@ -835,44 +856,135 @@ def _gvcf_records(path: str) -> tuple:
 
 
 # ---------------------------------------------------------------------------
-# Phase 5: the 5-step filter at real size
+# Phase 5: the 5-step filter at real size, pooled and serial
 # ---------------------------------------------------------------------------
 
 
-def five_step_phase(workdir: str, fx: dict, elfasta: str) -> dict:
-    """``filter --mark-duplicates --mark-optical-duplicates
-    --sorting-order coordinate --bqsr --known-sites --haplotypecaller
-    --reference-confidence GVCF`` (bench.py's command) through the port's
-    CLI on cuda, with the device programs' and PairHMM launch counts of
-    that run."""
+class _PoolWatch:
+    """Records what ``hc.parallel.get_pool`` returns during a run (the
+    CLI asks for the pool before the read phase, for the table build and
+    for the HaplotypeCaller)."""
+
+    def __init__(self):
+        from elprep_tpu_torch.hc import parallel
+
+        self.parallel = parallel
+        self.orig = parallel.get_pool
+        self.got = []
+
+    def __enter__(self):
+        def watched(n_workers):
+            pool = self.orig(n_workers)
+            self.got.append((n_workers, pool))
+            return pool
+
+        self.parallel.get_pool = watched
+        return self
+
+    def __exit__(self, *exc):
+        self.parallel.get_pool = self.orig
+        return False
+
+    def pools(self) -> list:
+        """The pools returned to the HaplotypeCaller's requests (n > 1)."""
+        return [pool for n, pool in self.got if n > 1]
+
+
+def start_pool() -> dict:
+    """Start the worker pool at the CLI's default size (the CPU count)
+    and wait until every worker answers; the CLI runs reuse it. Returns
+    {"workers", "start_s", "cpu_count"}."""
+    from elprep_tpu_torch.hc import parallel
+
+    n = os.cpu_count() or 1
+    t0 = time.perf_counter()
+    pool = parallel.get_pool(n)
+    if pool is None:
+        raise AssertionError(f"no worker pool of {n} workers")
+    infos = pool.probe_workers()
+    start_s = time.perf_counter() - t0
+    _check_workers_off_card(pool, infos)
+    _log("pool: os.cpu_count() %d, %d workers, started and answering in %.2f s"
+         % (n, pool.n, start_s))
+    return {"workers": pool.n, "start_s": start_s, "cpu_count": n}
+
+
+def _check_workers_off_card(pool, infos=None) -> None:
+    """Every worker reports the CPU as its device, no visible card and no
+    CUDA context, and nvidia-smi lists no process but this one on the
+    card."""
+    infos = pool.probe_workers() if infos is None else infos
+    for w, info in enumerate(infos):
+        if (info["device"] != "cpu" or info["CUDA_VISIBLE_DEVICES"] != ""
+                or info["cuda_initialized"]):
+            raise AssertionError(f"pool worker {w} is not off the card: {info}")
+    pids = subprocess.run(["nvidia-smi", "--query-compute-apps=pid",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.split()
+    workers = {str(info["pid"]) for info in infos}
+    if len(pids) > 1 or workers & set(pids):
+        raise AssertionError(f"processes on the card {pids}: more than this one "
+                             f"(pid {os.getpid()}; workers {sorted(workers)})")
+    _log("pool workers off the card: %d workers on the CPU without a CUDA "
+         "context; nvidia-smi compute apps %s (this process %d)"
+         % (len(infos), pids, os.getpid()))
+
+
+def _run_five_step(workdir: str, fx: dict, elfasta: str, tag: str,
+                   hc_workers: str = "", cold: bool = False) -> dict:
+    """One 5-step run through the CLI on cuda into ``workdir/tag``, with
+    the device programs' and PairHMM counts of that run and its checks.
+    ``hc_workers`` sets ELPREP_TPU_HC_WORKERS ("": the CLI's default).
+    ``cold``: no pool is alive before the run, so the CLI's spawn of its
+    workers is inside the timed window, as in a user's single run."""
     import numpy as np
 
     from elprep_tpu_torch import cli
     from elprep_tpu_torch.filters import add_refid
     from elprep_tpu_torch.io import sam as samio
 
-    out_bam = os.path.join(workdir, "five_step.bam")
-    metrics = os.path.join(workdir, "five_step.metrics.txt")
-    recal = os.path.join(workdir, "five_step.recal")
-    out_vcf = os.path.join(workdir, "five_step.vcf.gz")
-    args = ["filter", fx["sam"], out_bam, "--mark-duplicates",
-            "--mark-optical-duplicates", metrics, "--sorting-order", "coordinate",
-            "--bqsr", recal, "--known-sites", fx["sites"], "--reference", elfasta,
-            "--haplotypecaller", out_vcf, "--reference-confidence", "GVCF", "--timed"]
+    od = os.path.join(workdir, tag)
+    os.makedirs(od)
+    out = {k: os.path.join(od, f) for k, f in (
+        ("bam", "out.bam"), ("metrics", "metrics.txt"), ("recal", "out.recal"),
+        ("vcf", "out.vcf.gz"))}
+    args = ["filter", fx["sam"], out["bam"], "--mark-duplicates",
+            "--mark-optical-duplicates", out["metrics"], "--sorting-order", "coordinate",
+            "--bqsr", out["recal"], "--known-sites", fx["sites"], "--reference", elfasta,
+            "--haplotypecaller", out["vcf"], "--reference-confidence", "GVCF", "--timed"]
+    from elprep_tpu_torch.hc import parallel
+
+    old = os.environ.pop("ELPREP_TPU_HC_WORKERS", None)
+    if hc_workers:
+        os.environ["ELPREP_TPU_HC_WORKERS"] = hc_workers
     _zero_pairhmm_counts()
-    with _ProgramCounter() as ops, _PairHMMTimer() as tm, _StderrTee() as err:
-        t0 = time.perf_counter()
-        rc = cli.main(args)
-        wall = time.perf_counter() - t0
+    # the pool started by start_pool(), if this run uses it: its workers'
+    # CPU seconds before and after say how busy they were
+    pool = (parallel.get_pool(os.cpu_count() or 1)
+            if not hc_workers and not cold else None)
+    before = [w["cpu_s"] for w in pool.probe_workers()] if pool is not None else None
+    try:
+        with (_ProgramCounter() as ops, _PairHMMTimer() as tm, _StderrTee() as err,
+              _PoolWatch() as pw):
+            t0 = time.perf_counter()
+            c0 = time.process_time()
+            rc = cli.main(args)
+            wall = time.perf_counter() - t0
+            main_cpu_s = time.process_time() - c0
+    finally:
+        os.environ.pop("ELPREP_TPU_HC_WORKERS", None)
+        if old is not None:
+            os.environ["ELPREP_TPU_HC_WORKERS"] = old
     if rc != 0:
-        raise AssertionError(f"5-step run failed: rc {rc}")
-    launches, by_path = _pairhmm_counts("5-step")
+        raise AssertionError(f"5-step {tag} run failed: rc {rc}")
+    launches, by_path = _pairhmm_counts(f"5-step {tag}")
     for name, calls in ops.calls.items():
         if calls <= 0:
-            raise AssertionError(f"the 5-step run did not run {name} on the card")
+            raise AssertionError(f"the 5-step {tag} run did not run {name} on the card")
+    pools = pw.pools()
 
     n_reads = fx["n_reads"]
-    hdr, batch = samio.read_sam_file(out_bam)
+    hdr, batch = samio.read_sam_file(out["bam"])
     if len(batch) != n_reads or hdr.hd_so().value != "coordinate":
         raise AssertionError(f"5-step BAM: {len(batch)} records, SO {hdr.hd_so()}")
     add_refid(hdr)(batch)
@@ -883,53 +995,189 @@ def five_step_phase(workdir: str, fx: dict, elfasta: str) -> dict:
     n_dup = int(((batch.flag & 0x400) != 0).sum())
     if n_dup <= 0:
         raise AssertionError("5-step run flagged no duplicates")
-    with open(metrics, "rb") as fh:
+    with open(out["metrics"], "rb") as fh:
         rows = [ln.split(b"\t") for ln in fh.read().split(b"\n") if ln.startswith(b"lib1\t")]
     optical = int(rows[0][7]) if len(rows) == 1 else 0
     if optical <= 0:
         raise AssertionError(f"5-step metrics show no optical duplicates: {rows}")
-    with open(recal, "rb") as fh:
-        report = fh.read()
+    report = _read(out["recal"])
     table0 = report[report.index(b"#:GATKTable:RecalTable0:"):].split(b"\n")[2]
     if not table0.startswith(b"unit1 "):
         raise AssertionError(f"recal file has no read-group row: {table0!r}")
-    records, variants = _gvcf_records(out_vcf)
+    records, variants = _gvcf_records(out["vcf"])
     if not variants:
         raise AssertionError("5-step GVCF has no ALT calls")
     phases = err.phases()
     device_s = {name: ops.device_s(name) for name in ops.calls}
     kernel_s = tm.kernel_s()
-    _log("5-step: %d reads in %.2f s = %.0f reads/s; %d duplicates flagged, %d "
-         "optical pairs; RecalTable0 %s; GVCF %d records (%d with an ALT besides "
-         "<NON_REF>)" % (n_reads, wall, n_reads / wall, n_dup, optical,
-                         b" ".join(table0.split()).decode(), len(records), len(variants)))
-    _log("5-step phases (--timed): " + "; ".join("%s %.2f s" % p for p in phases))
-    _log("5-step device programs on the card: " + "; ".join(
+    workers = pools[0].n if pools and pools[0] is not None else 1
+    _log("5-step %s (%d HC workers): %d reads in %.2f s = %.0f reads/s; %d duplicates "
+         "flagged, %d optical pairs; RecalTable0 %s; GVCF %d records (%d with an ALT "
+         "besides <NON_REF>)" % (tag, workers, n_reads, wall, n_reads / wall, n_dup,
+                                 optical, b" ".join(table0.split()).decode(),
+                                 len(records), len(variants)))
+    _log("5-step %s phases (--timed): " % tag + "; ".join("%s %.2f s" % p for p in phases))
+    _log("5-step %s device programs on the card: " % tag + "; ".join(
         "%s %d calls, %.4f s device" % (k, ops.calls[k], device_s[k]) for k in ops.calls))
-    _log("5-step PairHMM: %d launches (per path %s), %d pairs; %.2f s wall in the "
-         "PairHMM (%.1f%% of the run): host packing %.2f s, kernel %.4f s on the device"
-         % (launches, json.dumps(by_path), tm.pairs, tm.total_s,
-            100.0 * tm.total_s / wall, tm.pack_s, kernel_s))
+    hc_s = dict(phases).get("Calling variants.", wall)
+    worker_cpu_s = None
+    if before is not None:
+        worker_cpu_s = sum(w["cpu_s"] for w in pool.probe_workers()) - sum(before)
+        _log("5-step %s CPU: the %d workers %.2f s (busy %.1f%% of %d x the %.2f s "
+             "HaplotypeCaller phase); this process %.2f s over its %.2f s wall, all "
+             "threads" % (tag, pool.n, worker_cpu_s,
+                          100.0 * worker_cpu_s / (pool.n * hc_s), pool.n, hc_s,
+                          main_cpu_s, wall))
+    else:
+        _log("5-step %s CPU: this process %.2f s over its %.2f s wall, all threads"
+             % (tag, main_cpu_s, wall))
+    _log("5-step %s PairHMM: %d launches (per path %s), %d pairs, %.1f pairs per "
+         "launch; %.2f s wall in the PairHMM calls (summed over dispatch threads, "
+         "%.1f%% of the run): host packing %.2f s, kernel %.4f s on the device"
+         % (tag, launches, json.dumps(by_path), tm.pairs, tm.pairs / launches,
+            tm.total_s, 100.0 * tm.total_s / wall, tm.pack_s, kernel_s))
     return {"launches": launches, "launches_by_path": by_path, "wall_s": wall,
-            "phases": phases, "calls": dict(ops.calls), "device_s": device_s}
+            "phases": phases, "calls": dict(ops.calls), "device_s": device_s,
+            "pairs": tm.pairs, "kernel_s": kernel_s, "workers": workers,
+            "pools": pools, "out": out, "main_cpu_s": main_cpu_s,
+            "worker_cpu_s": worker_cpu_s}
+
+
+def _bam_records(path: str) -> list:
+    from elprep_tpu_torch.io import sam as samio
+
+    _, batch = samio.read_sam_file(path)
+    return samio.format_alignments(batch).split(b"\n")
+
+
+def _metrics_body(path: str) -> bytes:
+    data = _read(path)
+    return data[data.index(b"## METRICS CLASS"):]
+
+
+def _vcf_body(path: str) -> list:
+    import gzip
+
+    with gzip.open(path, "rb") as fh:
+        return [ln for ln in fh.read().split(b"\n")
+                if not ln.startswith(b"##elPrepCommandLine")]
+
+
+def five_step_phase(workdir: str, fx: dict, elfasta: str) -> dict:
+    """``filter --mark-duplicates --mark-optical-duplicates
+    --sorting-order coordinate --bqsr --known-sites --haplotypecaller
+    --reference-confidence GVCF`` (bench.py's command) through the port's
+    CLI on cuda: pooled from cold (the CLI's default worker count, the
+    pool's spawn inside the wall: the end-to-end number), pooled again on
+    the warm pool, then serial (ELPREP_TPU_HC_WORKERS=1). The pooled runs
+    got their pool, its workers stay off the card, and their BAM records,
+    recal report, metrics body and GVCF body are byte-equal to the serial
+    run's."""
+    from elprep_tpu_torch.hc import parallel
+
+    parallel.shutdown_pool()
+    pooled = _run_five_step(workdir, fx, elfasta, "pooled", cold=True)
+    pools = pooled["pools"]
+    if not pools or any(p is None for p in pools):
+        raise AssertionError(f"the pooled 5-step run got no worker pool: {pools}")
+    _check_workers_off_card(pools[0])
+    warm = _run_five_step(workdir, fx, elfasta, "pooled-warm")
+    if not warm["pools"] or any(p is not pools[0] for p in warm["pools"]):
+        raise AssertionError("the warm pooled 5-step run did not reuse the pool")
+    serial = _run_five_step(workdir, fx, elfasta, "serial", hc_workers="1")
+    if serial["pools"]:
+        raise AssertionError("the serial 5-step run asked for a pool")
+    so = serial["out"]
+    for tag, run in (("pooled", pooled), ("pooled-warm", warm)):
+        po = run["out"]
+        for what, a, b in (
+                ("BAM records", _bam_records(po["bam"]), _bam_records(so["bam"])),
+                ("recal report", _read(po["recal"]), _read(so["recal"])),
+                ("metrics body", _metrics_body(po["metrics"]), _metrics_body(so["metrics"])),
+                ("GVCF body", _vcf_body(po["vcf"]), _vcf_body(so["vcf"]))):
+            if a != b:
+                raise AssertionError(f"5-step {tag} {what} differ from the serial run's")
+    _log("5-step pooled == pooled-warm == serial: BAM records, recal report, metrics "
+         "body and GVCF body byte-equal; walls %.2f s pooled from cold (%d workers, "
+         "spawn included), %.2f s on the warm pool, %.2f s serial (%.2fx cold, %.2fx "
+         "warm); PairHMM launches %d / %d vs %d, pairs per launch %.1f / %.1f vs %.1f"
+         % (pooled["wall_s"], pooled["workers"], warm["wall_s"], serial["wall_s"],
+            serial["wall_s"] / pooled["wall_s"], serial["wall_s"] / warm["wall_s"],
+            pooled["launches"], warm["launches"], serial["launches"],
+            pooled["pairs"] / pooled["launches"], warm["pairs"] / warm["launches"],
+            serial["pairs"] / serial["launches"]))
+    return {"pooled": pooled, "warm": warm, "serial": serial}
 
 
 # ---------------------------------------------------------------------------
-# Phase 6: the earlier slice (sort + HaplotypeCaller), at reduced depth
+# Phase 6: sfm on the 5-step fixture, in-process on the shared pool
+# ---------------------------------------------------------------------------
+
+
+def sfm_phase(workdir: str, fx: dict, elfasta: str, whole: dict) -> dict:
+    """``sfm`` with the 5-step options (one job at a time, in this
+    process, so every contig group reuses the worker pool): the same BAM
+    records (as a multiset: sfm writes the unmapped group first) and the
+    same GVCF body as the whole-file pooled run ``whole``."""
+    from elprep_tpu_torch import cli
+
+    od = os.path.join(workdir, "sfm")
+    os.makedirs(od)
+    out_bam, out_vcf = os.path.join(od, "out.bam"), os.path.join(od, "out.vcf.gz")
+    args = ["sfm", fx["sam"], out_bam, "--mark-duplicates", "--mark-optical-duplicates",
+            os.path.join(od, "metrics.txt"), "--sorting-order", "coordinate",
+            "--bqsr", os.path.join(od, "out.recal"), "--known-sites", fx["sites"],
+            "--reference", elfasta, "--haplotypecaller", out_vcf,
+            "--reference-confidence", "GVCF", "--tmp-path", os.path.join(od, "tmp"),
+            "--nr-of-jobs", "1"]
+    _zero_pairhmm_counts()
+    with _PoolWatch() as pw:
+        t0 = time.perf_counter()
+        rc = cli.main(args)
+        wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"sfm run failed: rc {rc}")
+    launches, by_path = _pairhmm_counts("sfm")
+    pools = pw.pools()
+    if not pools or any(p is not pools[0] or p is None for p in pools):
+        raise AssertionError("the sfm jobs did not share one worker pool")
+    if sorted(_bam_records(out_bam)) != sorted(_bam_records(whole["bam"])):
+        raise AssertionError("sfm BAM records differ from the whole-file run's")
+    body = [ln for ln in _vcf_body(out_vcf) if not ln.startswith(b"#")]
+    if body != [ln for ln in _vcf_body(whole["vcf"]) if not ln.startswith(b"#")] or not body:
+        raise AssertionError("sfm GVCF body differs from the whole-file run's")
+    _log("sfm: %d reads in %.2f s, %d pool requests over its jobs, one pool; BAM "
+         "records (as a multiset) and GVCF body (%d records) equal the whole-file "
+         "pooled run's; PairHMM %d launches (per path %s)"
+         % (fx["n_reads"], wall, len(pools), len(body), launches, json.dumps(by_path)))
+    return {"wall_s": wall, "launches": launches, "launches_by_path": by_path}
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: the earlier slice (sort + HaplotypeCaller), at reduced depth
 # ---------------------------------------------------------------------------
 
 
 class _PairHMMTimer:
     """Wraps the PairHMM entry points for one run: host wall of the whole
     batched PairHMM, of the host packing, and the kernel's device time
-    (CUDA events around each launch)."""
+    (CUDA events around each launch). The sums are taken under a lock,
+    since with more than one dispatch thread
+    (ELPREP_TPU_PAIRHMM_DISPATCH_WORKERS) the calls are concurrent; the
+    walls are then summed over the threads, and the event pairs of
+    threads sharing the default stream overlap, so the device time is
+    counted twice where two launches interleave. The default, one
+    dispatch thread, has no overlap."""
 
     def __init__(self):
+        import threading
+
         from elprep_tpu_torch.ops import pairhmm as ph
         from elprep_tpu_torch.ops import pairhmm_cuda as pc
 
         self.ph, self.pc = ph, pc
         self.orig = (ph.pairhmm_logl_pairs, pc.pack_pairs, pc.pairhmm_forward)
+        self.lock = threading.Lock()
         self.total_s = 0.0
         self.pack_s = 0.0
         self.events = []
@@ -945,16 +1193,18 @@ class _PairHMMTimer:
             try:
                 return logl(*a, **k)
             finally:
-                self.total_s += time.perf_counter() - t0
+                dt = time.perf_counter() - t0
+                with self.lock:
+                    self.total_s += dt
 
         def pack_t(*a, **k):
             t0 = time.perf_counter()
-            try:
-                out = pack(*a, **k)
+            out = pack(*a, **k)
+            dt = time.perf_counter() - t0
+            with self.lock:
                 self.pairs += out.n_pairs
-                return out
-            finally:
-                self.pack_s += time.perf_counter() - t0
+                self.pack_s += dt
+            return out
 
         def fwd_t(batch, tabs):
             if batch.device.type != "cuda":
@@ -964,7 +1214,8 @@ class _PairHMMTimer:
             e0.record()
             out = fwd(batch, tabs)
             e1.record()
-            self.events.append((e0, e1))
+            with self.lock:
+                self.events.append((e0, e1))
             return out
 
         self.ph.pairhmm_logl_pairs = logl_t
@@ -1028,6 +1279,29 @@ def slice_phase(workdir: str, ref: dict, n_reads: int = SLICE_READS,
             "pairhmm_s": tm.total_s, "pack_s": tm.pack_s, "kernel_s": kernel_s}
 
 
+def dispatch_ab_phase(workdir: str, fx: dict, elfasta: str, rounds: int) -> dict:
+    """The pooled 5-step run on the warm pool with 1 and 2 PairHMM
+    dispatch threads in turns; per setting the walls and the "Calling
+    variants" phase walls, in run order. One untimed run goes first: the
+    first run in a process pays the card's first-use set-up."""
+    _run_five_step(workdir, fx, elfasta, "ab-warm-up")
+    walls = {"1": [], "2": []}
+    hc = {"1": [], "2": []}
+    for r in range(rounds):
+        for n in ("1", "2") if r % 2 == 0 else ("2", "1"):
+            os.environ["ELPREP_TPU_PAIRHMM_DISPATCH_WORKERS"] = n
+            try:
+                run = _run_five_step(workdir, fx, elfasta, f"ab{r}-{n}")
+            finally:
+                os.environ.pop("ELPREP_TPU_PAIRHMM_DISPATCH_WORKERS", None)
+            walls[n].append(run["wall_s"])
+            hc[n].append(dict(run["phases"]).get("Calling variants.", run["wall_s"]))
+    _log("dispatch threads A/B (%d rounds): walls 1 thread %s, 2 threads %s; "
+         "calling variants 1 thread %s, 2 threads %s"
+         % (rounds, walls["1"], walls["2"], hc["1"], hc["2"]))
+    return {"wall_s": walls, "calling_variants_s": hc}
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -1057,7 +1331,22 @@ def main() -> int:
 
     t_start = time.perf_counter()
     build_phase()
+    if len(sys.argv) == 3 and sys.argv[1] == "--dispatch-ab":
+        start_pool()
+        workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+        try:
+            ref = make_reference(workdir)
+            fx = make_five_step_fixture(workdir, ref)
+            ab = dispatch_ab_phase(workdir, fx, ref["elfasta"], int(sys.argv[2]))
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        print(json.dumps({"dispatch_ab": ab}), flush=True)
+        return 0
+    if len(sys.argv) > 1:
+        print("usage: chip_smoke.py [--dispatch-ab ROUNDS]", file=sys.stderr)
+        return 2
     kernel = kernel_phase()
+    pool = start_pool()
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         golden_phase(workdir)
@@ -1069,18 +1358,31 @@ def main() -> int:
                 time.perf_counter() - t0))
         ops = device_ops_phase(fx, ref["elfasta"])
         five = five_step_phase(workdir, fx, ref["elfasta"])
+        sfm = sfm_phase(workdir, fx, ref["elfasta"], five["pooled"]["out"])
         earlier = slice_phase(workdir, ref)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     print(json.dumps({"device_ops": [
         {"name": name, "route": "torch", "source": source, "replaces": replaces,
-         "launches": five["calls"][name], "slice_device_s": five["device_s"][name],
+         "launches": five["pooled"]["calls"][name],
+         "slice_device_s": five["pooled"]["device_s"][name],
          "ms": ops[name]["ms"], "host_ms": ops[name]["host_ms"],
          "bound_ms": ops[name]["bound_ms"], "bound_by": "bytes", "rows": ops[name]["rows"]}
         for name, source, replaces in DEVICE_OPS]}), flush=True)
-    kernel["launches"] = five["launches"]
-    kernel["launches_by_path"] = five["launches_by_path"]
+    pooled, warm, serial = five["pooled"], five["warm"], five["serial"]
+    kernel["launches"] = pooled["launches"]
+    kernel["launches_by_path"] = pooled["launches_by_path"]
+    kernel["pairs_per_launch"] = pooled["pairs"] / pooled["launches"]
+    kernel["launches_warm"] = warm["launches"]
+    kernel["launches_serial"] = serial["launches"]
+    kernel["pairs_per_launch_serial"] = serial["pairs"] / serial["launches"]
+    kernel["launches_sfm"] = sfm["launches"]
     kernel["launches_sort_hc"] = earlier["launches"]
+    _log("5-step walls: pooled %.2f s from cold (%d workers of os.cpu_count() %d, "
+         "spawn included; a pool alone starts and answers in %.2f s), %.2f s on the "
+         "warm pool, serial %.2f s; sfm %.2f s"
+         % (pooled["wall_s"], pooled["workers"], pool["cpu_count"], pool["start_s"],
+            warm["wall_s"], serial["wall_s"], sfm["wall_s"]))
     _log("smoke: %.1f s wall" % (time.perf_counter() - t_start))
     print(json.dumps({"kernels": [kernel]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,13 +1,15 @@
 """Command-line interface of the port (reference: main.go, cmd/filter.go,
 cmd/convert.go; the JAX package's elprep_tpu/cli.py).
 
-Subcommands: ``filter``, ``vcf-to-elsites``, ``bed-to-elsites`` and
-``fasta-to-elfasta``. ``filter`` runs the in-memory 5-step pipeline
-(parse -> filters + duplicate marking -> sort -> optical duplicates ->
-BQSR -> write -> HaplotypeCaller) and the constant-memory streaming
-path. Options that reach modules not yet ported (sharding, spread files,
-directory inputs) and the other subcommands are refused by name; none is
-ignored.
+Subcommands: ``filter``, ``split``, ``merge``, ``sfm``,
+``merge-optical-duplicates-metrics``, ``vcf-to-elsites``,
+``bed-to-elsites`` and ``fasta-to-elfasta``. ``filter`` runs the
+in-memory 5-step pipeline (parse -> filters + duplicate marking -> sort
+-> optical duplicates -> BQSR -> write -> HaplotypeCaller) and the
+constant-memory streaming path; a directory input merges the files in
+it. With the HaplotypeCaller, or with BQSR on the CPU, it starts the
+worker pool (hc/parallel.py) before the read phase. ``--sharded``, whose modules are
+not ported yet, is refused by name; no option is ignored.
 
 The compute device is ``cuda`` unless ``ELPREP_TPU_TORCH_DEVICE`` names
 another (``cpu``). Asking for ``cuda`` without a card fails before any
@@ -31,10 +33,7 @@ _PHASE = [0]
 # filter options whose modules are not ported yet: (argparse dest, flag)
 _NOT_PORTED = (
     ("sharded", "--sharded"),
-    ("spread_file", "--spread-file"),
 )
-_NOT_PORTED_COMMANDS = ("split", "merge", "sfm",
-                        "merge-optical-duplicates-metrics")
 
 
 class NotPorted(ValueError):
@@ -135,8 +134,10 @@ def _build_filter_parser() -> argparse.ArgumentParser:
     p.add_argument("--spread-file", default="")
     p.add_argument("--random-seed-file", default="")
     p.add_argument("--nr-of-threads", type=int, default=0,
-                   help="threads of the native host code (the HaplotypeCaller "
-                        "runs in this process)")
+                   help="threads of the native host code and worker processes "
+                        "of the BQSR table build (on the CPU) and the "
+                        "HaplotypeCaller (default: the CPU count; "
+                        "ELPREP_TPU_HC_WORKERS overrides the worker count)")
     p.add_argument("--timed", action="store_true")
     p.add_argument("--profile", default="",
                    help="write a cProfile dump per phase to PREFIX<phase>.prof")
@@ -174,8 +175,6 @@ def filter_command(argv: List[str]) -> int:
 
     args = _build_filter_parser().parse_args(argv)
     refused = [flag for dest, flag in _NOT_PORTED if getattr(args, dest)]
-    if os.path.isdir(args.input):
-        refused.append("a directory input")
     if refused:
         raise NotPorted("not yet ported to elprep_tpu_torch: " + ", ".join(refused))
     command_line = "elprep_tpu_torch filter " + " ".join(argv)
@@ -287,17 +286,35 @@ def filter_command(argv: List[str]) -> int:
     # cmd/filter.go:328-341): no sort/dedup/BQSR/HC -> constant memory
     if (sorting_order in (SortingOrder.KEEP, SortingOrder.UNKNOWN, SortingOrder.UNSORTED)
             and not args.mark_duplicates and not want_bqsr and not args.bqsr_apply
-            and not want_hc and args.output not in ("/dev/null", "/dev/zero")):
+            and not want_hc and not args.spread_file and not os.path.isdir(args.input)
+            and args.output not in ("/dev/null", "/dev/zero")):
         _timed(args.timed, "Running pipeline.",
                lambda: _streaming_phase(args, filters1 + filters2, sorting_order),
                args.profile)
         return 0
 
     def read_phase():
-        hdr, batch = samio.read_sam_file(args.input)
+        if os.path.isdir(args.input):
+            # a directory input merges all contained files
+            # (reference: sam/merge-inputs.go)
+            from .io.merge_inputs import read_and_merge_files
+
+            hdr, batch = read_and_merge_files(sorted(
+                os.path.join(args.input, f) for f in os.listdir(args.input)
+                if not f.startswith(".")))
+        else:
+            hdr, batch = samio.read_sam_file(args.input)
         return run_pipeline(SamData(hdr, batch), filters1, sorting_order, device=dev)
 
     _setup_log(args.log_path, command_line)
+    pool = None
+    if want_hc or (want_bqsr and dev.type == "cpu"):
+        # spawn the worker pool now: the workers' imports overlap the
+        # read phase instead of stalling its first use. On cuda the BQSR
+        # table build stays on the card, so only the HC uses the pool.
+        from .hc.parallel import get_pool
+
+        pool = get_pool(_nr_workers(args))
     data = _timed(args.timed, "Reading SAM into memory and applying filters.",
                   read_phase, args.profile)
 
@@ -353,7 +370,8 @@ def filter_command(argv: List[str]) -> int:
         try:
             tables = _timed(args.timed, "Base recalibration.",
                             lambda: recal.recalibrate(data.header, data.batch,
-                                                      args.max_cycle, device=dev),
+                                                      args.max_cycle, pool=pool,
+                                                      device=dev),
                             args.profile)
         except BaseException:
             # report the overlapped optical thread before the recal
@@ -398,6 +416,8 @@ def filter_command(argv: List[str]) -> int:
             post_sort, device=dev)
 
     # remaining pipeline (cmd/filter.go:66-140)
+    if args.spread_file:
+        data = _merge_spread_file(data, args.spread_file, dev)
     pending_write = []
     if args.output not in ("/dev/null", "/dev/zero"):
         def write_phase():
@@ -442,6 +462,47 @@ def filter_command(argv: List[str]) -> int:
             if errs and not in_flight:
                 raise errs[0]
     return 0
+
+
+def _nr_workers(args) -> int:
+    """Worker processes of the pool: --nr-of-threads, else the CPU
+    count; ELPREP_TPU_HC_WORKERS overrides both."""
+    if os.environ.get("ELPREP_TPU_HC_WORKERS"):
+        return int(os.environ["ELPREP_TPU_HC_WORKERS"])
+    return args.nr_of_threads if args.nr_of_threads > 0 else (os.cpu_count() or 1)
+
+
+def _merge_spread_file(data, spread_file: str, dev):
+    """(reference: parseAndMergeSpreadFile, cmd/filter.go:44-64): the
+    spread reads of this group's own contigs (its @cs records), merged
+    into the coordinate-sorted group."""
+    from .core.batch import ReadBatch
+    from .core.header import SortingOrder
+    from .core.pipeline import SamData, run_pipeline
+    from .filters import simple as fsimple
+    from .io import sam as samio
+
+    _, spread = samio.read_sam_file(spread_file)
+    cs = data.header.contigs()
+    if not cs:
+        raise ValueError(
+            "Cannot call haplotypes on split file without contig information.")
+    contigs = {c.encode() if isinstance(c, str) else c for c in cs}
+    names_pool = (np.array(spread.names, dtype=bytes) if spread.names
+                  else np.array([b""], dtype=bytes))
+    keep = np.array([names_pool[spread.rname_id[i]] in contigs
+                     for i in range(len(spread))], bool)
+    spread = spread.select(keep)
+    sd = run_pipeline(SamData(data.header, spread), [fsimple.add_refid],
+                      SortingOrder.KEEP, device=dev)
+    merged = ReadBatch.concat([data.batch, sd.batch])
+    # after the concat the batch is not sorted though the header still
+    # says coordinate: drop the claim so the sort really runs (a
+    # COORDINATE request on a coordinate header is elided)
+    hdr2 = data.header.clone()
+    hdr2.hd["SO"] = "unknown"
+    return run_pipeline(SamData(hdr2, merged), [fsimple.add_refid],
+                        SortingOrder.COORDINATE, device=dev)
 
 
 def _streaming_phase(args, all_filters, sorting_order) -> None:
@@ -583,13 +644,14 @@ def _run_haplotypecaller(args, data, mapped_fasta, bed_regions, command_line,
                                       get_reference),
             shard_sidecar=bool(os.environ.get("ELPREP_TPU_VCF_SHARD"))))
         try:
-            # the PairHMM runs on the session device (the CLI's default)
+            # the PairHMM runs on the session device (the CLI's default),
+            # fed by the worker pool's batched dispatcher
             hcdriver.call_variants(
                 params, data.header, reads_by_contig, get_reference,
                 sample_name=sample_box[0], bed_regions=bed_spans,
                 use_device_pairhmm=not args.host_pairhmm,
                 activity_profile=ap, assembly_regions_out=ar,
-                variant_sink=sink)
+                nr_workers=_nr_workers(args), variant_sink=sink)
         finally:
             sink.close()
     finally:
@@ -658,8 +720,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     _native.tune_malloc()
     if not argv:
         print("elprep_tpu_torch — PyTorch/CUDA secondary-analysis engine\n"
-              "commands: filter, vcf-to-elsites, bed-to-elsites, "
-              "fasta-to-elfasta", file=sys.stderr)
+              "commands: filter, split, merge, sfm, "
+              "merge-optical-duplicates-metrics, vcf-to-elsites, "
+              "bed-to-elsites, fasta-to-elfasta", file=sys.stderr)
         return 1
     cmd, rest = argv[0], argv[1:]
     try:
@@ -671,8 +734,10 @@ def main(argv: Optional[List[str]] = None) -> int:
             return bed_to_elsites(rest)
         if cmd == "fasta-to-elfasta":
             return fasta_to_elfasta(rest)
-        if cmd in _NOT_PORTED_COMMANDS:
-            raise NotPorted(f"the {cmd} command is not yet ported to elprep_tpu_torch")
+        if cmd in ("split", "merge", "sfm", "merge-optical-duplicates-metrics"):
+            from . import splitmerge_cli
+
+            return splitmerge_cli.run(cmd, rest)
     except _device.DeviceUnavailable as e:
         print(f"elprep_tpu_torch {cmd}: {e}", file=sys.stderr)
         return 1

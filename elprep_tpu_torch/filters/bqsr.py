@@ -374,9 +374,12 @@ class BaseRecalibrator:
     def recalibrate(self, header: Header, batch: ReadBatch, max_cycle: int,
                     pool=None, device=None) -> BaseRecalibratorTables:
         """(reference: bqsr.go:467-551). The table build runs on
-        ``device`` (``None``: the session default). ``pool`` is accepted
-        for the JAX package's signature; this package has no worker pool
-        yet (hc.parallel.get_pool returns None), so the build is serial."""
+        ``device`` (``None``: the session default). On the CPU, with
+        ``pool`` (an hc.parallel.HCWorkerPool) and more than 4096 reads,
+        the host prep and the native table build fan out over the worker
+        processes; the scatter-add tables are commutative, so the result
+        is identical. On ``cuda`` the build stays on the card in this
+        process and ``pool`` is not used."""
         rgmap = rg_covariate_map(header)
         cov_names = sorted(set(rgmap.values()))
         tables = BaseRecalibratorTables.zeros(cov_names, max_cycle)
@@ -385,11 +388,26 @@ class BaseRecalibrator:
             return tables
         nrg = len(cov_names)
         ncyc = 2 * max_cycle + 1
-        p = prep_recalibrate_columns(self, header, batch, None, max_cycle)
-        preps = [p] if p["m"] > 0 else []
-        acc, max_abs_cycle = accumulate_table_partials(
-            preps, self.ref.classes, max_cycle, nrg, device=device)
-        if acc is not None:
+        dev = _device.resolve(device)
+        if pool is not None and n > 4096 and dev.type == "cpu":
+            from types import SimpleNamespace
+
+            lite = SimpleNamespace(
+                ref=SimpleNamespace(offsets=self.ref.offsets), known=self.known)
+            # workers run prep AND the table build on their own chunk and
+            # return only the (tiny) partial tables
+            partials = pool.map_bqsr_tables(lite, header, batch, max_cycle,
+                                            self.ref.classes)
+        else:
+            p = prep_recalibrate_columns(self, header, batch, None, max_cycle)
+            preps = [p] if p["m"] > 0 else []
+            partials = [accumulate_table_partials(
+                preps, self.ref.classes, max_cycle, nrg, device=dev)]
+        max_abs_cycle = 0
+        for acc, mac in partials:
+            max_abs_cycle = max(max_abs_cycle, mac)
+            if acc is None:
+                continue
             tables.qs_obs += acc[0].reshape(nrg, NQUAL)
             tables.qs_mism += acc[1].reshape(nrg, NQUAL)
             tables.cyc_obs += acc[2].reshape(nrg, NQUAL, ncyc)

@@ -28,6 +28,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from dataclasses import dataclass
 from typing import Dict, Optional, Sequence, Tuple
@@ -43,6 +44,14 @@ from .pairhmm import (F32_INITIAL_POW, F32_RESCUE_LOG10, modified_qualities,
 # it launches a kernel, nowhere else)
 LAUNCHES = 0
 LAUNCHES_BY_PATH = {"warp": 0, "cta": 0}
+
+# The HaplotypeCaller pool may dispatch from several threads at once
+# (ELPREP_TPU_PAIRHMM_DISPATCH_WORKERS > 1). This lock covers the three
+# check-then-act steps they share: the library build,
+# the per-device tables and the launch counts. The launches themselves
+# need no more: both threads use the current (default) stream, and each
+# caller ends in ``.cpu()``, which waits for its own kernel.
+_LOCK = threading.Lock()
 
 I2M = np.float32(tables.INDEL_TO_MATCH)
 I2I = np.float32(tables.INDEL_TO_INDEL)
@@ -109,9 +118,10 @@ _TABLES: Dict[torch.device, PairHMMTables] = {}
 def default_tables(device) -> PairHMMTables:
     """The package's tables on ``device``, built once per device."""
     dev = torch.device(device)
-    if dev not in _TABLES:
-        _TABLES[dev] = tables_from_numpy(*_table_arrays(), device=dev)
-    return _TABLES[dev]
+    with _LOCK:
+        if dev not in _TABLES:
+            _TABLES[dev] = tables_from_numpy(*_table_arrays(), device=dev)
+        return _TABLES[dev]
 
 
 # ---------------------------------------------------------------------------
@@ -327,8 +337,13 @@ def _nvcc() -> str:
 def library() -> _Library:
     """Build (once per source hash, into elprep_tpu_torch/_build/) and load
     the kernel library. A build or load failure raises."""
-    if _LIB:
+    with _LOCK:
+        if not _LIB:
+            _LIB.append(_build_library())
         return _LIB[0]
+
+
+def _build_library() -> _Library:
     with open(_SRC, "rb") as fh:
         src = fh.read()
     key = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
@@ -349,8 +364,7 @@ def library() -> _Library:
         finally:
             if os.path.exists(tmp):
                 os.remove(tmp)
-    _LIB.append(_Library(path, time.perf_counter() - t0, log))
-    return _LIB[0]
+    return _Library(path, time.perf_counter() - t0, log)
 
 
 def launch_plan(max_read_len: int, path: Optional[str] = None) -> Tuple[str, int, int]:
@@ -425,8 +439,9 @@ def _pairhmm_forward_path(batch: PairBatch, tabs: PairHMMTables,
     if err != 0:
         raise RuntimeError(f"PairHMM {path} kernel launch failed: "
                            + lib.lib.pairhmm_error_string(err).decode())
-    LAUNCHES += 1
-    LAUNCHES_BY_PATH[path] += 1
+    with _LOCK:
+        LAUNCHES += 1
+        LAUNCHES_BY_PATH[path] += 1
     return acc
 
 

@@ -306,6 +306,46 @@ def test_recalibrate_matches_jax(setup, monkeypatch, route):
     assert want.qs_obs.sum() > 10000 and want.cyc_mism.sum() > 0
 
 
+def test_pooled_recalibrate_matches_serial(setup):
+    """On the CPU the worker pool's table build (each worker preps its
+    chunk and runs the native build, returning partial tables) gives
+    exactly the serial tables, which equal the JAX package's."""
+    from elprep_tpu_torch.hc.parallel import get_pool
+
+    genome = make_genome(CONTIGS, seed=3)
+    reads = reads_from_genome(5000, CONTIGS, genome, seed=11, rg_ids=RG_IDS)
+    sam = ("\n".join(make_header_lines(CONTIGS, rgs=RGS) + reads) + "\n").encode()
+    hdr, big = samio.parse_sam(sam)
+    add_refid(hdr)(big)
+    assert len(big) > 4096  # the pool takes batches above 4096 reads
+    recal = fb.BaseRecalibrator([setup["sites"]], RefIndex(MappedFasta(setup["elf"])))
+    serial = recal.recalibrate(hdr, big, MAX_CYCLE, device="cpu")
+    pool = get_pool(2)
+    assert pool is not None
+    calls = []
+    orig = pool.map_bqsr_tables
+
+    def spy(*a, **k):
+        calls.append(1)
+        return orig(*a, **k)
+
+    pool.map_bqsr_tables = spy
+    try:
+        pooled = recal.recalibrate(hdr, big, MAX_CYCLE, pool=pool, device="cpu")
+    finally:
+        del pool.map_bqsr_tables
+    assert calls == [1]
+    jh, jb = jparse(sam)
+    jadd_refid(jh)(jb)
+    want = jfb.BaseRecalibrator([setup["sites"]], JRefIndex(JMappedFasta(setup["elf"]))
+                                ).recalibrate(jh, jb, MAX_CYCLE)
+    assert pooled.rg_names == serial.rg_names == want.rg_names
+    for k in _TABLE_KEYS:
+        assert getattr(pooled, k).tolist() == getattr(serial, k).tolist(), k
+        assert getattr(serial, k).tolist() == getattr(want, k).tolist(), k
+    assert serial.qs_obs.sum() > 100000
+
+
 def test_host_route_without_native_matches(setup, monkeypatch):
     """Without the native engine the CPU route histograms the torch
     covariate codes: the same tables."""

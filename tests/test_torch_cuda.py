@@ -362,3 +362,117 @@ def test_filters_on_cuda_equal_cpu_route(cuda, tmp_path):
     for k in ("qs_obs", "qs_mism", "cyc_obs", "cyc_mism", "ctx_obs", "ctx_mism"):
         assert getattr(t1, k).tolist() == getattr(t0, k).tolist(), k
     assert q1.tolist() == q0.tolist()
+
+
+# ---------------------------------------------------------------------------
+# the HaplotypeCaller worker pool feeding the kernel from two threads
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_concurrent_forward_calls_equal_plain(cuda):
+    """Two threads call the wrapper at once, as the pool's dispatch
+    threads do with ELPREP_TPU_PAIRHMM_DISPATCH_WORKERS=2: every result
+    equals the plain version, and LAUNCHES counts every launch."""
+    import threading
+
+    batches = []
+    for seed in range(8):
+        reads, haps, pair_r, pair_h = _case(200 + seed, [100, 120, 151, 90], [250, 400, 333])
+        batches.append(pc.pack_pairs(reads, haps, pair_r, pair_h).to(cuda))
+    tabs = pc.default_tables(cuda)
+    want = [pc.pairhmm_forward_plain(b, tabs) for b in batches]
+    n0, by0 = _launches()
+    rounds = 25
+    got = {}
+    errors = []
+
+    def work(k):
+        try:
+            for r in range(rounds):
+                i = (k * 4 + r) % len(batches)
+                got[(k, r)] = (i, pc.pairhmm_forward(batches[i], tabs).cpu())
+        except BaseException as e:  # surfaced below
+            errors.append(e)
+
+    threads = [threading.Thread(target=work, args=(k,)) for k in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+        assert not t.is_alive()
+    assert not errors, errors
+    assert len(got) == 2 * rounds
+    for i, acc in got.values():
+        assert torch.equal(acc, want[i].cpu())
+    n1, by1 = _launches()
+    assert n1 - n0 == 2 * rounds
+    assert by1["warp"] - by0["warp"] == 2 * rounds
+
+
+def _pool_fixture():
+    """A 200 bp deletion crossing region boundaries, a SNP inside it on
+    the other haplotype and a second SNP cluster (tests/test_hc_driver.py's
+    pooled-vs-serial fixture)."""
+    from elprep_tpu_torch.core.header import Header
+    from elprep_tpu_torch.filters.clipping import ClipRead
+
+    rng = np.random.RandomState(17)
+    ref = rng.choice(_BASES, 6000).tobytes()
+    hap_del = ref[:2000] + ref[2200:]
+    hap_snp = ref[:2104] + (b"A" if ref[2104:2105] != b"A" else b"C") + ref[2105:]
+    hap_b = ref[:4000] + (b"G" if ref[4000:4001] != b"G" else b"T") + ref[4001:]
+    reads = []
+    for i in range(120):
+        hap = (hap_del, hap_snp, hap_b)[i % 3]
+        start = (1800 + (i * 13) % 500) if i % 3 != 2 else (3850 + (i * 11) % 250)
+        seq = hap[start : start + 120]
+        reads.append(ClipRead(
+            flag=0x63 if i % 2 == 0 else 0x93, pos=start + 1, pnext=start + 151,
+            tlen=300 if i % 2 == 0 else -300, mapq=60, cigar=[(len(seq), "M")],
+            seq=seq, qual=bytes([35]) * len(seq), rname=b"chr1", rnext=b"=",
+            qname=b"pp%04d" % i))
+    reads.sort(key=lambda r: r.pos)
+    hdr = Header()
+    hdr.sq = [{"SN": "chr1", "LN": str(len(ref))}]
+    return ref, reads, hdr
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dispatch", [None, "2"])
+@pytest.mark.parametrize("mode", ["NONE", "GVCF"])
+def test_pooled_call_variants_on_cuda_equals_serial(cuda, monkeypatch, mode, dispatch):
+    """call_variants with the worker pool (the dispatcher feeding the
+    kernel batches of many regions, from its default one thread or from
+    two) == the serial run (batches of 16 regions), byte for byte, both
+    on the card."""
+    from elprep_tpu_torch import device
+    from elprep_tpu_torch.hc import driver, parallel
+    from elprep_tpu_torch.hc.activity import make_hc_params
+    from elprep_tpu_torch.hc.refconf import expand_variants
+    from elprep_tpu_torch.io.vcf import format_variant
+
+    if dispatch:
+        monkeypatch.setenv("ELPREP_TPU_PAIRHMM_DISPATCH_WORKERS", dispatch)
+    else:
+        monkeypatch.delenv("ELPREP_TPU_PAIRHMM_DISPATCH_WORKERS", raising=False)
+    ref, reads, hdr = _pool_fixture()
+    old = device.resolve()
+    device.set_default_device(cuda)
+    try:
+        out = {}
+        for nw in (1, 2):
+            n0 = pc.LAUNCHES
+            _, v = driver.call_variants(
+                make_hc_params(mode, command_line="t"), hdr, {"chr1": list(reads)},
+                lambda c: ref, sample_name="s1", use_device_pairhmm=True,
+                nr_workers=nw)
+            assert pc.LAUNCHES > n0
+            out[nw] = [format_variant(x) for x in expand_variants(v)]
+        assert parallel.get_pool(2) is not None
+        assert parallel._dispatch_tuning()[2] == int(dispatch or 1)
+        for info in parallel.get_pool(2).probe_workers():
+            assert info["device"] == "cpu" and info["cuda_initialized"] is False
+    finally:
+        device.set_default_device(old)
+    assert out[2] == out[1] and out[1]
