@@ -47,13 +47,24 @@ Phases, each of which must pass:
 6. sfm: ``sfm`` with the same options, one job at a time in this
    process, every contig group on the one pool: the BAM records and the
    GVCF body of the whole-file pooled run;
-7. slice: the earlier ``filter --sorting-order coordinate
+7. sharded: the sharded library on a mesh of four cuda:0 entries at the
+   5-step fixture's size (``run_sharded_sort_dedup``'s SAM equal to the
+   single-device dedup + sort, ``sharded_recalibrate``'s tables equal to
+   the card's single-device build, ``pairhmm_sharded`` over (cuda:0,
+   cuda:0) at 8192 pairs bit-equal to the plain version), each sharded
+   program's card time and bytes bound; then the 5-step command with
+   ``--sharded`` in this process on the warm pool, and through ``python
+   -m elprep_tpu_torch.parallel.multihost`` as a fresh process (a world
+   of one on NCCL), both byte-equal to the pooled run;
+8. slice: the earlier ``filter --sorting-order coordinate
    --haplotypecaller --reference-confidence GVCF`` on 30 000 reads, its
    launches again all on the warp path.
 
 Prints the card (nvidia-smi name and power limit), one JSON line with
-the device programs' numbers, one with the kernels' numbers (launches
-from the cold pooled 5-step run, the warm and serial runs' beside them),
+the device programs' numbers (the sharded ones' launches from the
+in-process ``--sharded`` run), one with the kernels' numbers (launches
+from the cold pooled 5-step run, the warm, serial, sfm and sharded runs'
+beside them),
 and as its last line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Exits non-zero,
 printing no result, without a CUDA device or outside a checkout of the
@@ -68,6 +79,8 @@ line.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
 import os
 import shutil
@@ -159,14 +172,37 @@ def build_phase() -> dict:
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(builders)) as ex:
         libs = {k: ex.submit(f) for k, f in builders.items()}
+        warm_s = _card_first_use()
         libs = {k: f.result() for k, f in libs.items()}
-    _log("build: %.1f s wall" % (time.perf_counter() - t0))
+    _log("build: %.1f s wall; the card's first use beside it %.1f s"
+         % (time.perf_counter() - t0, warm_s))
     for name, lib in libs.items():
         _log("build %s: %.1f s; ptxas: %s" % (
             name, lib.build_seconds,
             " | ".join(ln.strip() for ln in lib.build_log.splitlines()
                        if "registers" in ln or "spill" in ln)[:2000]))
     return {k: lib.build_seconds for k, lib in libs.items()}
+
+
+def _card_first_use() -> float:
+    """The card's first use in this process (CUDA context, module loading)
+    through a small run of the torch programs of the main path and the
+    PairHMM's plain version; returns its seconds."""
+    import numpy as np
+    import torch
+
+    from elprep_tpu_torch.ops import dedup, sortkeys
+    from elprep_tpu_torch.ops import pairhmm_cuda as pc
+
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(1)
+    cols = [rng.randint(0, 50, 4096).astype(np.int32) for _ in range(7)]
+    dedup.mark_duplicates(*cols, device="cuda")
+    sortkeys.coordinate_sort_perm(*(cols + [cols[0]]), device="cuda")
+    batch = pc.pack_pairs(*make_pairs(64, seed=1)).to("cuda")
+    pc.pairhmm_forward_plain(batch, pc.default_tables("cuda"))
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
 
 
 # ---------------------------------------------------------------------------
@@ -217,6 +253,36 @@ def make_pairs(n_pairs: int, seed: int, reads_per_region: int = 8,
                 pair_h.append(h0 + h)
     return (reads, haps, np.asarray(pair_r[:n_pairs], np.int64),
             np.asarray(pair_h[:n_pairs], np.int64))
+
+
+def make_region(n_reads: int, n_haps: int, seed: int, read_len=(100, 151),
+                hap_len: int = 400):
+    """One HaplotypeCaller region: ``n_haps`` haplotypes that differ from
+    one reference window by a SNP each (as a region's assembled haplotypes
+    do) and ``n_reads`` reads sampled from them with 1% errors and
+    qualities 20-40. Returns (reads, haps)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    ref = rng.choice(acgt, hap_len)
+    haps = []
+    for k in range(n_haps):
+        h = ref.copy()
+        if k:
+            p = rng.randint(hap_len)
+            h[p] = rng.choice(acgt[acgt != h[p]])
+        haps.append(h.tobytes())
+    reads = []
+    for _ in range(n_reads):
+        src = np.frombuffer(haps[rng.randint(n_haps)], np.uint8)
+        lr = rng.randint(read_len[0], read_len[1] + 1)
+        st = rng.randint(0, hap_len - lr + 1)
+        seq = src[st : st + lr].copy()
+        err = rng.rand(lr) < 0.01
+        seq[err] = rng.choice(acgt, int(err.sum()))
+        reads.append((seq.tobytes(), rng.randint(20, 41, lr).astype(np.uint8), 60))
+    return reads, haps
 
 
 def _bound_ms(batch, cells: int) -> tuple:
@@ -544,6 +610,21 @@ def make_five_step_fixture(workdir: str, ref: dict, n_reads: int = FIVE_STEP_REA
     return {"sam": sam, "sites": sites, "n_reads": len(lines) + len(dups)}
 
 
+def _make_fixtures(workdir: str) -> tuple:
+    """The reference, the 5-step fixture and the slice's SAM, in a
+    spawned process (off the card) that runs beside the kernel, pool and
+    golden phases. Returns (ref, fx, slice SAM path, seconds)."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    for path in (REPO, TESTS):
+        if path not in sys.path:
+            sys.path.insert(0, path)
+    t0 = time.perf_counter()
+    ref = make_reference(workdir)
+    fx = make_five_step_fixture(workdir, ref)
+    slice_sam = make_slice_fixture(workdir, ref, SLICE_READS)
+    return ref, fx, slice_sam, time.perf_counter() - t0
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: the three torch device programs at the slice's size
 # ---------------------------------------------------------------------------
@@ -733,17 +814,22 @@ def device_ops_phase(fx: dict, elfasta: str, max_cycle: int = 500,
 
 
 class _ProgramCounter:
-    """Counts the calls of the three torch device programs that run on
-    cuda during one run, and their device time (CUDA events around each
-    outermost call: the packed table build calls the dense one)."""
+    """Counts the calls of the three torch device programs (or, with
+    ``sharded``, of the two sharded programs) that run on cuda during one
+    run, and their device time (CUDA events around each outermost call:
+    the packed table build calls the dense one)."""
 
-    def __init__(self):
+    def __init__(self, sharded: bool = False):
         from elprep_tpu_torch.ops import bqsr_ops, dedup
+        from elprep_tpu_torch.parallel import sharded as psh
 
-        self.targets = [(dedup, "mark_duplicates", "mark_duplicates"),
-                        (bqsr_ops, "recalibrate_tables_packed", "recalibrate_tables"),
-                        (bqsr_ops, "recalibrate_tables", "recalibrate_tables"),
-                        (bqsr_ops, "apply_bqsr", "apply_bqsr")]
+        self.targets = ([(psh, "sharded_sort_dedup_step", "sharded_sort_dedup_step"),
+                         (psh, "_sharded_recal_step", "sharded_recal_step")]
+                        if sharded else
+                        [(dedup, "mark_duplicates", "mark_duplicates"),
+                         (bqsr_ops, "recalibrate_tables_packed", "recalibrate_tables"),
+                         (bqsr_ops, "recalibrate_tables", "recalibrate_tables"),
+                         (bqsr_ops, "apply_bqsr", "apply_bqsr")])
         self.orig = [getattr(mod, attr) for mod, attr, _ in self.targets]
         self.calls = {name: 0 for _, _, name in self.targets}
         self.events = {name: [] for _, _, name in self.targets}
@@ -816,15 +902,19 @@ class _StderrTee:
         return False
 
     def phases(self) -> list:
-        """[(phase message, seconds)] from the --timed lines."""
-        out, msg = [], None
-        for ln in self.buf.getvalue().splitlines():
-            if ln.startswith("  done in ") and msg is not None:
-                out.append((msg, float(ln.split()[2].rstrip("s"))))
-                msg = None
-            elif not ln.startswith(" "):
-                msg = ln.strip()
-        return out
+        return _timed_phases(self.buf.getvalue())
+
+
+def _timed_phases(text: str) -> list:
+    """[(phase message, seconds)] from the --timed lines of ``text``."""
+    out, msg = [], None
+    for ln in text.splitlines():
+        if ln.startswith("  done in ") and msg is not None:
+            out.append((msg, float(ln.split()[2].rstrip("s"))))
+            msg = None
+        elif not ln.startswith(" "):
+            msg = ln.strip()
+    return out
 
 
 def _zero_pairhmm_counts():
@@ -845,12 +935,17 @@ def _pairhmm_counts(what: str) -> tuple:
     return launches, by_path
 
 
-def _gvcf_records(path: str) -> tuple:
+@functools.lru_cache(maxsize=None)
+def _gz_lines(path: str) -> tuple:
+    """The lines of a gzip-compressed output, read once per path."""
     import gzip
 
     with gzip.open(path, "rb") as fh:
-        vcf = fh.read()
-    records = [ln for ln in vcf.split(b"\n") if ln and not ln.startswith(b"#")]
+        return tuple(fh.read().split(b"\n"))
+
+
+def _gvcf_records(path: str) -> tuple:
+    records = [ln for ln in _gz_lines(path) if ln and not ln.startswith(b"#")]
     variants = [ln for ln in records if ln.split(b"\t")[4] != b"<NON_REF>"]
     return records, variants
 
@@ -930,28 +1025,38 @@ def _check_workers_off_card(pool, infos=None) -> None:
          % (len(infos), pids, os.getpid()))
 
 
+def _five_step_args(fx: dict, elfasta: str, out: dict) -> list:
+    """bench.py's 5-step command (filter ... --timed) into ``out``'s paths."""
+    return ["filter", fx["sam"], out["bam"], "--mark-duplicates",
+            "--mark-optical-duplicates", out["metrics"], "--sorting-order", "coordinate",
+            "--bqsr", out["recal"], "--known-sites", fx["sites"], "--reference", elfasta,
+            "--haplotypecaller", out["vcf"], "--reference-confidence", "GVCF", "--timed"]
+
+
+def _out_paths(od: str) -> dict:
+    os.makedirs(od)
+    return {k: os.path.join(od, f) for k, f in (
+        ("bam", "out.bam"), ("metrics", "metrics.txt"), ("recal", "out.recal"),
+        ("vcf", "out.vcf.gz"))}
+
+
 def _run_five_step(workdir: str, fx: dict, elfasta: str, tag: str,
-                   hc_workers: str = "", cold: bool = False) -> dict:
+                   hc_workers: str = "", cold: bool = False,
+                   sharded: bool = False) -> dict:
     """One 5-step run through the CLI on cuda into ``workdir/tag``, with
     the device programs' and PairHMM counts of that run and its checks.
     ``hc_workers`` sets ELPREP_TPU_HC_WORKERS ("": the CLI's default).
     ``cold``: no pool is alive before the run, so the CLI's spawn of its
-    workers is inside the timed window, as in a user's single run."""
+    workers is inside the timed window, as in a user's single run.
+    ``sharded``: with ``--sharded``, the two sharded programs counted too."""
     import numpy as np
 
     from elprep_tpu_torch import cli
     from elprep_tpu_torch.filters import add_refid
     from elprep_tpu_torch.io import sam as samio
 
-    od = os.path.join(workdir, tag)
-    os.makedirs(od)
-    out = {k: os.path.join(od, f) for k, f in (
-        ("bam", "out.bam"), ("metrics", "metrics.txt"), ("recal", "out.recal"),
-        ("vcf", "out.vcf.gz"))}
-    args = ["filter", fx["sam"], out["bam"], "--mark-duplicates",
-            "--mark-optical-duplicates", out["metrics"], "--sorting-order", "coordinate",
-            "--bqsr", out["recal"], "--known-sites", fx["sites"], "--reference", elfasta,
-            "--haplotypecaller", out["vcf"], "--reference-confidence", "GVCF", "--timed"]
+    out = _out_paths(os.path.join(workdir, tag))
+    args = _five_step_args(fx, elfasta, out) + (["--sharded"] if sharded else [])
     from elprep_tpu_torch.hc import parallel
 
     old = os.environ.pop("ELPREP_TPU_HC_WORKERS", None)
@@ -964,8 +1069,9 @@ def _run_five_step(workdir: str, fx: dict, elfasta: str, tag: str,
             if not hc_workers and not cold else None)
     before = [w["cpu_s"] for w in pool.probe_workers()] if pool is not None else None
     try:
-        with (_ProgramCounter() as ops, _PairHMMTimer() as tm, _StderrTee() as err,
-              _PoolWatch() as pw):
+        with (_ProgramCounter() as ops,
+              _ProgramCounter(sharded=True) if sharded else contextlib.nullcontext() as sops,
+              _PairHMMTimer() as tm, _StderrTee() as err, _PoolWatch() as pw):
             t0 = time.perf_counter()
             c0 = time.process_time()
             rc = cli.main(args)
@@ -978,7 +1084,8 @@ def _run_five_step(workdir: str, fx: dict, elfasta: str, tag: str,
     if rc != 0:
         raise AssertionError(f"5-step {tag} run failed: rc {rc}")
     launches, by_path = _pairhmm_counts(f"5-step {tag}")
-    for name, calls in ops.calls.items():
+    counted = [ops, sops] if sharded else [ops]
+    for name, calls in [kv for c in counted for kv in c.calls.items()]:
         if calls <= 0:
             raise AssertionError(f"the 5-step {tag} run did not run {name} on the card")
     pools = pw.pools()
@@ -987,6 +1094,7 @@ def _run_five_step(workdir: str, fx: dict, elfasta: str, tag: str,
     hdr, batch = samio.read_sam_file(out["bam"])
     if len(batch) != n_reads or hdr.hd_so().value != "coordinate":
         raise AssertionError(f"5-step BAM: {len(batch)} records, SO {hdr.hd_so()}")
+    _bam_records(out["bam"], batch)
     add_refid(hdr)(batch)
     refid = batch.temps["REFID"].astype(np.int64)
     key = np.where(refid < 0, np.iinfo(np.int64).max, refid * 2**33 + batch.pos)
@@ -1008,7 +1116,8 @@ def _run_five_step(workdir: str, fx: dict, elfasta: str, tag: str,
     if not variants:
         raise AssertionError("5-step GVCF has no ALT calls")
     phases = err.phases()
-    device_s = {name: ops.device_s(name) for name in ops.calls}
+    device_s = {name: c.device_s(name) for c in counted for name in c.calls}
+    calls = {name: n for c in counted for name, n in c.calls.items()}
     kernel_s = tm.kernel_s()
     workers = pools[0].n if pools and pools[0] is not None else 1
     _log("5-step %s (%d HC workers): %d reads in %.2f s = %.0f reads/s; %d duplicates "
@@ -1018,7 +1127,7 @@ def _run_five_step(workdir: str, fx: dict, elfasta: str, tag: str,
                                  len(records), len(variants)))
     _log("5-step %s phases (--timed): " % tag + "; ".join("%s %.2f s" % p for p in phases))
     _log("5-step %s device programs on the card: " % tag + "; ".join(
-        "%s %d calls, %.4f s device" % (k, ops.calls[k], device_s[k]) for k in ops.calls))
+        "%s %d calls, %.4f s device" % (k, calls[k], device_s[k]) for k in calls))
     hc_s = dict(phases).get("Calling variants.", wall)
     worker_cpu_s = None
     if before is not None:
@@ -1037,17 +1146,26 @@ def _run_five_step(workdir: str, fx: dict, elfasta: str, tag: str,
          % (tag, launches, json.dumps(by_path), tm.pairs, tm.pairs / launches,
             tm.total_s, 100.0 * tm.total_s / wall, tm.pack_s, kernel_s))
     return {"launches": launches, "launches_by_path": by_path, "wall_s": wall,
-            "phases": phases, "calls": dict(ops.calls), "device_s": device_s,
+            "phases": phases, "calls": calls, "device_s": device_s,
             "pairs": tm.pairs, "kernel_s": kernel_s, "workers": workers,
             "pools": pools, "out": out, "main_cpu_s": main_cpu_s,
             "worker_cpu_s": worker_cpu_s}
 
 
-def _bam_records(path: str) -> list:
+# formatted records of the BAMs read so far, by path
+_BAM_RECORDS: dict = {}
+
+
+def _bam_records(path: str, batch=None) -> list:
+    """The formatted records of a BAM (of ``batch``, when the caller has
+    already read it), formatted once per path."""
     from elprep_tpu_torch.io import sam as samio
 
-    _, batch = samio.read_sam_file(path)
-    return samio.format_alignments(batch).split(b"\n")
+    if path not in _BAM_RECORDS:
+        if batch is None:
+            _, batch = samio.read_sam_file(path)
+        _BAM_RECORDS[path] = samio.format_alignments(batch).split(b"\n")
+    return _BAM_RECORDS[path]
 
 
 def _metrics_body(path: str) -> bytes:
@@ -1056,11 +1174,19 @@ def _metrics_body(path: str) -> bytes:
 
 
 def _vcf_body(path: str) -> list:
-    import gzip
+    return [ln for ln in _gz_lines(path) if not ln.startswith(b"##elPrepCommandLine")]
 
-    with gzip.open(path, "rb") as fh:
-        return [ln for ln in fh.read().split(b"\n")
-                if not ln.startswith(b"##elPrepCommandLine")]
+
+def _same_outputs(what: str, out: dict, other: str, want: dict) -> None:
+    """The BAM records, recal report, metrics body and GVCF body of two
+    5-step runs are byte-equal."""
+    for name, a, b in (
+            ("BAM records", _bam_records(out["bam"]), _bam_records(want["bam"])),
+            ("recal report", _read(out["recal"]), _read(want["recal"])),
+            ("metrics body", _metrics_body(out["metrics"]), _metrics_body(want["metrics"])),
+            ("GVCF body", _vcf_body(out["vcf"]), _vcf_body(want["vcf"]))):
+        if a != b:
+            raise AssertionError(f"{what} {name} differ from the {other} run's")
 
 
 def five_step_phase(workdir: str, fx: dict, elfasta: str) -> dict:
@@ -1087,16 +1213,8 @@ def five_step_phase(workdir: str, fx: dict, elfasta: str) -> dict:
     serial = _run_five_step(workdir, fx, elfasta, "serial", hc_workers="1")
     if serial["pools"]:
         raise AssertionError("the serial 5-step run asked for a pool")
-    so = serial["out"]
     for tag, run in (("pooled", pooled), ("pooled-warm", warm)):
-        po = run["out"]
-        for what, a, b in (
-                ("BAM records", _bam_records(po["bam"]), _bam_records(so["bam"])),
-                ("recal report", _read(po["recal"]), _read(so["recal"])),
-                ("metrics body", _metrics_body(po["metrics"]), _metrics_body(so["metrics"])),
-                ("GVCF body", _vcf_body(po["vcf"]), _vcf_body(so["vcf"]))):
-            if a != b:
-                raise AssertionError(f"5-step {tag} {what} differ from the serial run's")
+        _same_outputs(f"5-step {tag}", run["out"], "serial", serial["out"])
     _log("5-step pooled == pooled-warm == serial: BAM records, recal report, metrics "
          "body and GVCF body byte-equal; walls %.2f s pooled from cold (%d workers, "
          "spawn included), %.2f s on the warm pool, %.2f s serial (%.2fx cold, %.2fx "
@@ -1154,7 +1272,203 @@ def sfm_phase(workdir: str, fx: dict, elfasta: str, whole: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 7: the earlier slice (sort + HaplotypeCaller), at reduced depth
+# Phase 7: --sharded: the library on a 4-entry mesh of the one card, the CLI
+# in-process and through the multi-process runner (a world of one on NCCL)
+# ---------------------------------------------------------------------------
+
+SHARDED_MESH_ENTRIES = 4
+
+# (name, file of the port, what it replaces in the JAX package)
+SHARDED_OPS = (
+    ("sharded_sort_dedup_step", "elprep_tpu_torch/parallel/sharded.py",
+     "elprep_tpu/parallel/sharded.py:163"),
+    ("sharded_recal_step", "elprep_tpu_torch/parallel/sharded.py",
+     "elprep_tpu/parallel/sharded.py:306"),
+)
+
+
+class _Capture:
+    """Records the arguments of every call of ``mod.attr`` in a block."""
+
+    def __init__(self, mod, attr):
+        self.mod, self.attr, self.orig, self.calls = mod, attr, getattr(mod, attr), []
+
+    def __enter__(self):
+        def grab(*a):
+            self.calls.append(a)
+            return self.orig(*a)
+
+        setattr(self.mod, self.attr, grab)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.attr, self.orig)
+        return False
+
+
+def sharded_library_phase(fx: dict, elfasta: str, max_cycle: int = 500,
+                          reps: int = 5) -> dict:
+    """The sharded library on a mesh of SHARDED_MESH_ENTRIES entries of
+    cuda:0 (the helper copies and cross-shard pairs run on the card) at
+    the 5-step fixture's 120 000 reads: ``run_sharded_sort_dedup`` gives
+    the SAM of the single-device dedup + sort; ``sharded_recalibrate`` the
+    tables of the card's single-device build, bit for bit; then
+    ``pairhmm_sharded`` over (cuda:0, cuda:0) at 8192 pairs against the
+    plain version on the card. Each sharded program's card time (CUDA
+    events, its host columns' copies to the card included) and bytes
+    bound. Returns {name: numbers}."""
+    import numpy as np
+    import torch
+
+    from elprep_tpu_torch.core.header import SortingOrder
+    from elprep_tpu_torch.core.pipeline import SamData, run_pipeline
+    from elprep_tpu_torch.filters import add_refid
+    from elprep_tpu_torch.filters import bqsr as fb
+    from elprep_tpu_torch.filters.markdup import MarkDuplicatesState, mark_duplicates_filter
+    from elprep_tpu_torch.io import sam as samio
+    from elprep_tpu_torch.io.fasta import MappedFasta, RefIndex
+    from elprep_tpu_torch.ops import packed
+    from elprep_tpu_torch.ops import pairhmm_cuda as pc
+    from elprep_tpu_torch.parallel import pairhmm_sharded
+    from elprep_tpu_torch.parallel import sharded as psh
+
+    cuda = torch.device("cuda", 0)
+    mesh = (cuda,) * SHARDED_MESH_ENTRIES
+    out = {}
+
+    hdr, batch = samio.read_sam_file(fx["sam"])
+    whole = run_pipeline(SamData(hdr, batch), [add_refid, mark_duplicates_filter(
+        state=MarkDuplicatesState(), device=cuda)], SortingOrder.COORDINATE, device=cuda)
+    shdr, sbatch = samio.read_sam_file(fx["sam"])
+    add_refid(shdr)(sbatch)
+    with _Capture(psh, "sharded_sort_dedup_step") as cap:
+        t0 = time.perf_counter()
+        got, _ = psh.run_sharded_sort_dedup(sbatch, shdr, mesh)
+        wall = time.perf_counter() - t0
+    shdr.set_hd_so(SortingOrder.COORDINATE)
+    if samio.format_sam(shdr, got) != samio.format_sam(whole.header, whole.batch):
+        raise AssertionError("run_sharded_sort_dedup differs from the single-device "
+                             "dedup + sort")
+    cols = cap.calls[0][1:]
+    n_rows = len(cols[0])
+    out["sharded_sort_dedup_step"] = dict(
+        rows=n_rows, wall_s=wall,
+        ms=_median_ms(lambda: cap.orig(mesh, *cols), reps),
+        bytes=_nbytes(*cols) + n_rows * (1 + 8),  # dup (bool) + perm (int64) out
+        note="%d shards of %d rows, %d duplicates" % (
+            len(mesh), n_rows // len(mesh), int(((got.flag & 0x400) != 0).sum())))
+
+    recal = fb.BaseRecalibrator([fx["sites"]], RefIndex(MappedFasta(elfasta)))
+    single = recal.recalibrate(shdr, got, max_cycle, device=cuda)
+    timings = {}
+    with _Capture(psh, "_sharded_recal_step") as cap:
+        tables = psh.sharded_recalibrate(recal, shdr, got, max_cycle, mesh, timings)
+    for key in ("qs_obs", "qs_mism", "cyc_obs", "cyc_mism", "ctx_obs", "ctx_mism"):
+        if not np.array_equal(getattr(tables, key), getattr(single, key)):
+            raise AssertionError(f"sharded_recalibrate {key} differs from the card's "
+                                 "single-device build")
+    shipped = []
+    for prep, classes, _, n_rg, _ in cap.calls:
+        bp, lut = packed.pack_nibble_dict(prep["base"])
+        shipped += [bp, lut, classes, packed.pack_bits(prep["skip"])] + [
+            prep[k] for k in ("qual", "seq_len", "flag", "pos", "rg", "refoff",
+                              "op_class", "op_len")]
+    table_bytes = sum(getattr(single, k).size for k in (
+        "qs_obs", "qs_mism", "cyc_obs", "cyc_mism", "ctx_obs", "ctx_mism")) * 4
+    out["sharded_recal_step"] = dict(
+        rows=sum(int(c[0]["m"]) for c in cap.calls), wall_s=sum(timings.values()),
+        ms=_median_ms(lambda: [cap.orig(*c) for c in cap.calls], reps),
+        bytes=_nbytes(*shipped) + table_bytes * len(cap.calls),
+        note="%d shards with reads; prep %.3f s, device %.3f s" % (
+            len(cap.calls), timings["prep_s"], timings["device_s"]))
+    for name, d in out.items():
+        d["bound_ms"] = d["bytes"] / PEAK_BYTES_PER_S * 1e3
+        _log("%s on %d x cuda:0: %d rows (%s), equal to the single-device result; "
+             "card %.4f ms median of %d (host columns copied in), bound %.4f ms "
+             "(%d bytes), %.1fx off it; %.3f s in the library call"
+             % (name, len(mesh), d["rows"], d["note"], d["ms"], reps, d["bound_ms"],
+                d["bytes"], d["ms"] / d["bound_ms"], d["wall_s"]))
+
+    # PairHMM: one region's reads x haplotypes, 8192 pairs over two entries
+    reads, haps = make_region(128, KERNEL_PAIRS // 128, seed=9)
+    n0 = pc.LAUNCHES
+    t0 = time.perf_counter()
+    got = pairhmm_sharded((cuda, cuda), reads, haps).reshape(-1)
+    pwall = time.perf_counter() - t0
+    if pc.LAUNCHES - n0 != 2:
+        raise AssertionError(f"pairhmm_sharded made {pc.LAUNCHES - n0} launches, not 2")
+    pair_r = np.repeat(np.arange(len(reads)), len(haps))
+    pair_h = np.tile(np.arange(len(haps)), len(reads))
+    batch = pc.pack_pairs(reads, haps, pair_r, pair_h).to(cuda)
+    plain = pc.pairhmm_forward_plain(batch, pc.default_tables(cuda)).cpu().numpy()
+    with np.errstate(divide="ignore"):
+        want = np.log10(plain.astype(np.float64)) - pc.F32_INITIAL_POW * np.log10(2.0)
+    kept = np.isfinite(want) & (want >= pc.F32_RESCUE_LOG10)
+    if len(got) != KERNEL_PAIRS or not np.array_equal(got[kept], want[kept]) \
+            or not np.isfinite(got).all():
+        raise AssertionError("pairhmm_sharded differs from the plain version")
+    _log("pairhmm_sharded on (cuda:0, cuda:0): %d reads x %d haplotypes = %d pairs in "
+         "2 launches, bit-equal to the plain version on the %d pairs kept from f32 "
+         "(%d rescued in f64); %.3f s wall" % (len(reads), len(haps), len(got),
+                                               int(kept.sum()), int((~kept).sum()), pwall))
+    return out
+
+
+def _multihost_run(workdir: str, fx: dict, elfasta: str, timeout_s: int = 600) -> dict:
+    """The 5-step command through ``python -m
+    elprep_tpu_torch.parallel.multihost`` as a fresh process: a world of
+    one on NCCL (the machine has one card). Returns its outputs, wall,
+    --timed phases and the runner's line (backend, collectives)."""
+    import socket
+
+    out = _out_paths(os.path.join(workdir, "multihost"))
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    env = dict(os.environ, ELPREP_TPU_TORCH_DEVICE="cuda",
+               PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    cmd = [sys.executable, "-m", "elprep_tpu_torch.parallel.multihost",
+           "--coordinator", f"127.0.0.1:{port}", "--num-processes", "1",
+           "--process-id", "0", "--"] + _five_step_args(fx, elfasta, out) + ["--sharded"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, env=env, cwd=REPO, capture_output=True, text=True,
+                          timeout=timeout_s)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"multihost run failed: rc {proc.returncode}\n"
+                             + proc.stderr[-4000:])
+    runner = [ln for ln in proc.stderr.splitlines()
+              if ln.startswith("elprep_tpu_torch multihost:")]
+    if not runner or "rank 0 of 1 on nccl" not in runner[-1]:
+        raise AssertionError(f"multihost run: no NCCL rank line: {runner}")
+    return {"out": out, "wall_s": wall, "phases": _timed_phases(proc.stderr),
+            "runner": runner[-1]}
+
+
+def sharded_phase(workdir: str, fx: dict, elfasta: str, pooled: dict) -> dict:
+    """``--sharded``: the library on the card (sharded_library_phase);
+    then the 5-step command with ``--sharded`` in this process on the warm
+    pool (mesh (cuda:0,)) and through the multi-process runner as a fresh
+    process, each byte-equal to the pooled run ``pooled``, the in-process
+    run's PairHMM launches all on the warp path."""
+    lib = sharded_library_phase(fx, elfasta)
+    run = _run_five_step(workdir, fx, elfasta, "sharded", sharded=True)
+    _same_outputs("5-step --sharded", run["out"], "pooled", pooled["out"])
+    mh = _multihost_run(workdir, fx, elfasta)
+    _same_outputs("multihost 5-step --sharded", mh["out"], "pooled", pooled["out"])
+    _log("5-step --sharded == pooled: BAM records, recal report, metrics body and "
+         "GVCF body byte-equal, in-process (%.2f s on the warm pool, PairHMM %d "
+         "launches, per path %s; sharded programs %s) and through the multi-process "
+         "runner (%.2f s from a fresh process, phases %s; %s)"
+         % (run["wall_s"], run["launches"], json.dumps(run["launches_by_path"]),
+            {k: run["calls"][k] for k, _, _ in SHARDED_OPS}, mh["wall_s"],
+            "; ".join("%s %.2f s" % p for p in mh["phases"]), mh["runner"]))
+    return {"library": lib, "run": run, "multihost": mh}
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: the earlier slice (sort + HaplotypeCaller), at reduced depth
 # ---------------------------------------------------------------------------
 
 
@@ -1235,18 +1549,13 @@ class _PairHMMTimer:
         return sum(a.elapsed_time(b) for a, b in self.events) / 1e3
 
 
-def slice_phase(workdir: str, ref: dict, n_reads: int = SLICE_READS,
-                contigs=SLICE_CONTIGS) -> dict:
+def slice_phase(workdir: str, ref: dict, sam: str, n_reads: int = SLICE_READS) -> dict:
     """``filter --sorting-order coordinate --haplotypecaller
-    --reference-confidence GVCF`` on ``n_reads`` reads."""
+    --reference-confidence GVCF`` on the ``n_reads`` reads of ``sam``."""
     from elprep_tpu_torch import cli
     from elprep_tpu_torch.io import sam as samio
 
-    t0 = time.perf_counter()
-    sam = make_slice_fixture(workdir, ref, n_reads, contigs)
     elfasta = ref["elfasta"]
-    _log("slice fixture: %d reads over %d bp in %.1f s"
-         % (n_reads, sum(n for _, n in contigs), time.perf_counter() - t0))
     out_bam = os.path.join(workdir, "slice.bam")
     out_vcf = os.path.join(workdir, "slice.vcf.gz")
     args = ["filter", sam, out_bam, "--sorting-order", "coordinate",
@@ -1330,7 +1639,15 @@ def main() -> int:
     _log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {kind}")
 
     t_start = time.perf_counter()
-    build_phase()
+    walls = {}
+
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls[name] = time.perf_counter() - t0
+        return out
+
+    phase("build", build_phase)
     if len(sys.argv) == 3 and sys.argv[1] == "--dispatch-ab":
         start_pool()
         workdir = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -1345,21 +1662,26 @@ def main() -> int:
     if len(sys.argv) > 1:
         print("usage: chip_smoke.py [--dispatch-ab ROUNDS]", file=sys.stderr)
         return 2
-    kernel = kernel_phase()
-    pool = start_pool()
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        golden_phase(workdir)
-        t0 = time.perf_counter()
-        ref = make_reference(workdir)
-        fx = make_five_step_fixture(workdir, ref)
-        _log("5-step fixture: %d reads over %d bp, %d known sites, in %.1f s"
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+
+        with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as ex:
+            fixtures = ex.submit(_make_fixtures, workdir)
+            kernel = phase("kernel", kernel_phase)
+            pool = phase("pool", start_pool)
+            phase("golden", golden_phase, workdir)
+            ref, fx, slice_sam, fixture_s = phase("fixture wait", fixtures.result)
+        _log("5-step fixture: %d reads over %d bp, %d known sites, and the slice's %d "
+             "reads, in %.1f s in a process beside the phases above"
              % (fx["n_reads"], sum(n for _, n in SLICE_CONTIGS), len(ref["snps"]),
-                time.perf_counter() - t0))
-        ops = device_ops_phase(fx, ref["elfasta"])
-        five = five_step_phase(workdir, fx, ref["elfasta"])
-        sfm = sfm_phase(workdir, fx, ref["elfasta"], five["pooled"]["out"])
-        earlier = slice_phase(workdir, ref)
+                SLICE_READS, fixture_s))
+        ops = phase("device ops", device_ops_phase, fx, ref["elfasta"])
+        five = phase("5-step", five_step_phase, workdir, fx, ref["elfasta"])
+        sfm = phase("sfm", sfm_phase, workdir, fx, ref["elfasta"], five["pooled"]["out"])
+        shd = phase("sharded", sharded_phase, workdir, fx, ref["elfasta"], five["pooled"])
+        earlier = phase("slice", slice_phase, workdir, ref, slice_sam)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     print(json.dumps({"device_ops": [
@@ -1368,7 +1690,14 @@ def main() -> int:
          "slice_device_s": five["pooled"]["device_s"][name],
          "ms": ops[name]["ms"], "host_ms": ops[name]["host_ms"],
          "bound_ms": ops[name]["bound_ms"], "bound_by": "bytes", "rows": ops[name]["rows"]}
-        for name, source, replaces in DEVICE_OPS]}), flush=True)
+        for name, source, replaces in DEVICE_OPS] + [
+        {"name": name, "route": "torch", "source": source, "replaces": replaces,
+         "launches": shd["run"]["calls"][name],
+         "slice_device_s": shd["run"]["device_s"][name],
+         "ms": shd["library"][name]["ms"], "host_ms": None,
+         "bound_ms": shd["library"][name]["bound_ms"], "bound_by": "bytes",
+         "rows": shd["library"][name]["rows"], "mesh": SHARDED_MESH_ENTRIES}
+        for name, source, replaces in SHARDED_OPS]}), flush=True)
     pooled, warm, serial = five["pooled"], five["warm"], five["serial"]
     kernel["launches"] = pooled["launches"]
     kernel["launches_by_path"] = pooled["launches_by_path"]
@@ -1377,13 +1706,17 @@ def main() -> int:
     kernel["launches_serial"] = serial["launches"]
     kernel["pairs_per_launch_serial"] = serial["pairs"] / serial["launches"]
     kernel["launches_sfm"] = sfm["launches"]
+    kernel["launches_sharded"] = shd["run"]["launches"]
     kernel["launches_sort_hc"] = earlier["launches"]
     _log("5-step walls: pooled %.2f s from cold (%d workers of os.cpu_count() %d, "
          "spawn included; a pool alone starts and answers in %.2f s), %.2f s on the "
-         "warm pool, serial %.2f s; sfm %.2f s"
+         "warm pool, serial %.2f s; sfm %.2f s; --sharded %.2f s on the warm pool, "
+         "%.2f s through the multi-process runner"
          % (pooled["wall_s"], pooled["workers"], pool["cpu_count"], pool["start_s"],
-            warm["wall_s"], serial["wall_s"], sfm["wall_s"]))
-    _log("smoke: %.1f s wall" % (time.perf_counter() - t_start))
+            warm["wall_s"], serial["wall_s"], sfm["wall_s"], shd["run"]["wall_s"],
+            shd["multihost"]["wall_s"]))
+    _log("smoke: %.1f s wall; phases: %s" % (
+        time.perf_counter() - t_start, "; ".join("%s %.1f s" % kv for kv in walls.items())))
     print(json.dumps({"kernels": [kernel]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

@@ -8,8 +8,11 @@ in-memory 5-step pipeline (parse -> filters + duplicate marking -> sort
 -> optical duplicates -> BQSR -> write -> HaplotypeCaller) and the
 constant-memory streaming path; a directory input merges the files in
 it. With the HaplotypeCaller, or with BQSR on the CPU, it starts the
-worker pool (hc/parallel.py) before the read phase. ``--sharded``, whose modules are
-not ported yet, is refused by name; no option is ignored.
+worker pool (hc/parallel.py) before the read phase. ``--sharded`` runs the
+duplicate marking, sort and BQSR table build over the device mesh and the
+PairHMM over the same mesh (parallel/); in a process group
+(``python -m elprep_tpu_torch.parallel.multihost``) the HaplotypeCaller is
+also partitioned by contig across the processes.
 
 The compute device is ``cuda`` unless ``ELPREP_TPU_TORCH_DEVICE`` names
 another (``cpu``). Asking for ``cuda`` without a card fails before any
@@ -29,16 +32,6 @@ import numpy as np
 from . import device as _device
 
 _PHASE = [0]
-
-# filter options whose modules are not ported yet: (argparse dest, flag)
-_NOT_PORTED = (
-    ("sharded", "--sharded"),
-)
-
-
-class NotPorted(ValueError):
-    """An option or command whose modules this package does not have yet."""
-
 
 def _timed(enabled: bool, msg: str, fn, profile: str = ""):
     """(reference: timedRun, cmd/util.go:262-281)"""
@@ -88,7 +81,7 @@ def _setup_log(log_path: str, command_line: str) -> None:
 
 def _build_filter_parser() -> argparse.ArgumentParser:
     """The JAX package's filter options, so that a command line means the
-    same to both; the unported ones are refused after parsing."""
+    same to both."""
     p = argparse.ArgumentParser(prog="elprep_tpu_torch filter", add_help=True)
     p.add_argument("input")
     p.add_argument("output")
@@ -156,7 +149,12 @@ def _build_filter_parser() -> argparse.ArgumentParser:
                         "`pedantic` build tag")
     p.add_argument("--host-pairhmm", action="store_true",
                    help="use the f64 host PairHMM instead of the device kernel")
-    p.add_argument("--sharded", action="store_true")
+    p.add_argument("--sharded", action="store_true",
+                   help="shard the in-memory pipeline over the device mesh: "
+                        "per-shard sort+dedup, a summed BQSR table build and "
+                        "the PairHMM split over the mesh (needs "
+                        "--mark-duplicates and --sorting-order coordinate for "
+                        "the sort, dedup and BQSR parts)")
     return p
 
 
@@ -174,9 +172,6 @@ def filter_command(argv: List[str]) -> int:
     from .io import intervals as iv
 
     args = _build_filter_parser().parse_args(argv)
-    refused = [flag for dest, flag in _NOT_PORTED if getattr(args, dest)]
-    if refused:
-        raise NotPorted("not yet ported to elprep_tpu_torch: " + ", ".join(refused))
     command_line = "elprep_tpu_torch filter " + " ".join(argv)
     dev = _device.default_device_from_env()
 
@@ -241,11 +236,16 @@ def filter_command(argv: List[str]) -> int:
             or sorting_order in (SortingOrder.COORDINATE, SortingOrder.QUERYNAME)
             or want_bqsr or args.bqsr_apply or want_hc):
         filters1.append(fsimple.add_refid)
+    use_sharded = bool(args.sharded and args.mark_duplicates
+                       and sorting_order == SortingOrder.COORDINATE)
     md_state = None
-    if args.mark_duplicates:
+    if args.mark_duplicates and not use_sharded:
         md_state = MarkDuplicatesState()
         filters1.append(mark_duplicates_filter(state=md_state, device=dev))
-    filters1.append(fsimple.remove_optional_reads)
+    # in sharded mode remove_optional_reads runs after the sharded
+    # dedup+sort, keeping the serial phase order
+    if not use_sharded:
+        filters1.append(fsimple.remove_optional_reads)
 
     filters2: List = []
     if args.remove_duplicates:
@@ -304,14 +304,29 @@ def filter_command(argv: List[str]) -> int:
                 if not f.startswith(".")))
         else:
             hdr, batch = samio.read_sam_file(args.input)
+        if use_sharded:
+            from .core.pipeline import effective_sorting_order
+            from .parallel.mesh import make_mesh
+            from .parallel.sharded import run_sharded_sort_dedup
+
+            data0 = run_pipeline(SamData(hdr, batch), filters1, SortingOrder.KEEP,
+                                 device=dev)
+            so = effective_sorting_order(sorting_order, data0.header, hdr.hd_so())
+            batch2, _ = run_sharded_sort_dedup(
+                data0.batch, data0.header, make_mesh(device=dev),
+                do_sort=so == SortingOrder.COORDINATE)
+            return run_pipeline(SamData(data0.header, batch2),
+                                [fsimple.remove_optional_reads], SortingOrder.KEEP,
+                                device=dev)
         return run_pipeline(SamData(hdr, batch), filters1, sorting_order, device=dev)
 
     _setup_log(args.log_path, command_line)
     pool = None
-    if want_hc or (want_bqsr and dev.type == "cpu"):
+    if want_hc or (want_bqsr and dev.type == "cpu" and not use_sharded):
         # spawn the worker pool now: the workers' imports overlap the
-        # read phase instead of stalling its first use. On cuda the BQSR
-        # table build stays on the card, so only the HC uses the pool.
+        # read phase instead of stalling its first use. On cuda (and in
+        # sharded mode) the BQSR table build stays on the mesh, so only
+        # the HC uses the pool.
         from .hc.parallel import get_pool
 
         pool = get_pool(_nr_workers(args))
@@ -367,12 +382,19 @@ def filter_command(argv: List[str]) -> int:
             data.batch = run_pipeline(
                 data, [fsimple.remove_non_overlapping_reads(bed_obj)],
                 post_sort, device=dev).batch
+        if use_sharded:
+            from .parallel.mesh import make_mesh
+            from .parallel.sharded import sharded_recalibrate
+
+            def recal_fn():
+                return sharded_recalibrate(recal, data.header, data.batch,
+                                           args.max_cycle, make_mesh(device=dev))
+        else:
+            def recal_fn():
+                return recal.recalibrate(data.header, data.batch, args.max_cycle,
+                                         pool=pool, device=dev)
         try:
-            tables = _timed(args.timed, "Base recalibration.",
-                            lambda: recal.recalibrate(data.header, data.batch,
-                                                      args.max_cycle, pool=pool,
-                                                      device=dev),
-                            args.profile)
+            tables = _timed(args.timed, "Base recalibration.", recal_fn, args.profile)
         except BaseException:
             # report the overlapped optical thread before the recal
             # error propagates, so it does not fail invisibly
@@ -634,32 +656,109 @@ def _run_haplotypecaller(args, data, mapped_fasta, bed_regions, command_line,
                      for c, ivals in bed_regions.items()}
     ap = open(args.activity_profile, "w") if args.activity_profile else None
     ar = open(args.assembly_regions, "w") if args.assembly_regions else None
+    from .ops.pairhmm import set_pairhmm_mesh
+
+    mh_pid, mh_n = 0, 1
     try:
+        # --sharded: the PairHMM's pair batches split over this process's
+        # mesh (in a process group too: the dispatch composition depends
+        # on the worker pool's drain timing, so no collective may ride
+        # inside it). Cleared otherwise, so the module state does not
+        # leak into later runs in this process.
+        if args.sharded:
+            from .parallel.mesh import make_mesh, process_rank_and_count
+
+            mh_pid, mh_n = process_rank_and_count()
+            set_pairhmm_mesh(make_mesh())
+        else:
+            set_pairhmm_mesh(None)
+        # process group: contig-partitioned calling with an ordered VCF
+        # gather (the reference's per-node sfm HC jobs + CombineVcfOutputs,
+        # cmd/sfm.go:769-876, haploutils.go:481-499). Every process
+        # derives the identical contiguous partition from the replicated
+        # batch, calls variants on its slice only, writes a shard VCF to
+        # the shared filesystem, and gathers all shards in contig order.
+        hc_out = args.haplotypecaller
+        mh_shards = None
+        mh_restrict = None
+        if mh_n > 1:
+            from .parallel.multihost import hc_contig_partition
+
+            # ALL header contigs are partitioned (zero-coverage GVCF bands
+            # are emitted per @SQ contig), weighted by read count
+            sq_names = [sq["SN"] for sq in data.header.sq]
+            owner = hc_contig_partition(
+                [len(reads_by_contig.get(nm, ())) for nm in sq_names], mh_n)
+            mh_restrict = {nm for i, nm in enumerate(sq_names) if owner[i] == mh_pid}
+            reads_by_contig = {nm: blk for nm, blk in reads_by_contig.items()
+                               if nm in mh_restrict}
+            # the shard exchange rides the shared filesystem: the
+            # output's directory, or ELPREP_TPU_HC_SHARD_DIR when each
+            # process writes to its own output directory
+            shard_dir = os.environ.get(
+                "ELPREP_TPU_HC_SHARD_DIR",
+                os.path.dirname(os.path.abspath(args.haplotypecaller)) or ".")
+            base = os.path.basename(args.haplotypecaller)
+            # .gz shards + header sidecars: the gather concatenates the
+            # compressed body blocks directly
+            mh_shards = [os.path.join(shard_dir, "%s.mh%03d.part.gz" % (base, p))
+                         for p in range(mh_n)]
+            hc_out = mh_shards[mh_pid]
         os.makedirs(os.path.dirname(os.path.abspath(args.haplotypecaller)) or ".",
                     exist_ok=True)
         # streaming writeback: header first, then records as they come
         sink = vcfmod.AsyncVariantSink(vcfmod.StreamingVcfWriter(
-            args.haplotypecaller,
+            hc_out,
             hcdriver.write_vcf_header(params, data.header, sample_box[0],
                                       get_reference),
-            shard_sidecar=bool(os.environ.get("ELPREP_TPU_VCF_SHARD"))))
+            shard_sidecar=(mh_shards is not None
+                           or bool(os.environ.get("ELPREP_TPU_VCF_SHARD")))))
         try:
-            # the PairHMM runs on the session device (the CLI's default),
-            # fed by the worker pool's batched dispatcher
+            # the PairHMM runs on the session device (the CLI's default)
+            # or the mesh, fed by the worker pool's batched dispatcher
             hcdriver.call_variants(
                 params, data.header, reads_by_contig, get_reference,
                 sample_name=sample_box[0], bed_regions=bed_spans,
                 use_device_pairhmm=not args.host_pairhmm,
                 activity_profile=ap, assembly_regions_out=ar,
-                nr_workers=_nr_workers(args), variant_sink=sink)
+                nr_workers=_nr_workers(args), variant_sink=sink,
+                restrict_contigs=mh_restrict)
         finally:
             sink.close()
+        if mh_n > 1 and params.downsample_fired:
+            # per-slice LCG streams: the selection within >50-deep
+            # pileups depends on the contig partition, as in the
+            # reference's per-job sfm seeding (cmd/sfm.go:634-644)
+            print("elprep_tpu_torch: warning: HC downsampling fired in a "
+                  "multi-host run; downsampled-read selection uses "
+                  "per-contig-slice RNG streams and may differ from a "
+                  "single-process run (coverage-equivalent output)",
+                  file=sys.stderr, flush=True)
+        if mh_shards is not None:
+            # all shard VCFs visible -> gather in contig order (process p
+            # owns the p-th contiguous contig slice) -> every process
+            # writes an identical final VCF -> barrier again before the
+            # cleanup, so no process deletes a shard a peer still reads
+            from .parallel.multihost import hc_gather_barrier
+            from .splitmerge_cli import _combine_vcf_outputs
+
+            hc_gather_barrier("elprep-hc-shards")
+            _combine_vcf_outputs(mh_shards, args.haplotypecaller)
+            hc_gather_barrier("elprep-hc-gathered")
+            for victim in (mh_shards[mh_pid], mh_shards[mh_pid] + ".hdroff"):
+                try:
+                    os.remove(victim)
+                except OSError:
+                    pass
     finally:
+        set_pairhmm_mesh(None)
         if ap:
             ap.close()
         if ar:
             ar.close()
-    if args.random_seed_file:
+    if args.random_seed_file and mh_pid == 0:
+        # in a process group only process 0 writes (the shared-filesystem
+        # path would race; per-slice LCG streams mirror sfm's per-job seeds)
         with open(args.random_seed_file, "w") as f:
             f.write(str(params.random.reflect_seed()))
 

@@ -331,8 +331,10 @@ def _worker_loop(wid: int, req_q, res_q) -> None:
             if kind == "probe":
                 # where this worker runs: its process, the cards it can
                 # see, its session device, whether it opened a CUDA
-                # context, and the CPU time it has used so far
+                # context or joined a process group (and the rendezvous
+                # variables it sees), and the CPU time it has used so far
                 import torch
+                import torch.distributed as dist
 
                 from .. import device as _device
 
@@ -341,6 +343,10 @@ def _worker_loop(wid: int, req_q, res_q) -> None:
                     "CUDA_VISIBLE_DEVICES": os.environ.get("CUDA_VISIBLE_DEVICES"),
                     "device": str(_device.resolve()),
                     "cuda_initialized": torch.cuda.is_initialized(),
+                    "dist_initialized": dist.is_available() and dist.is_initialized(),
+                    "rendezvous_env": sorted(
+                        k for k in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE")
+                        if k in os.environ),
                     "cpu_s": _time.process_time()}))
                 continue
             if kind == "ref":

@@ -246,6 +246,16 @@ def pairhmm_f64_diag(seq: bytes, qual: np.ndarray, mapq: int, hap: bytes) -> flo
 # ---------------------------------------------------------------------------
 
 
+# PairHMM mesh (parallel/mesh.py): when set, a dispatch on the session
+# device splits its pair axis over the mesh's devices instead
+_MESH: list = [None]
+
+
+def set_pairhmm_mesh(mesh) -> None:
+    """Set (a sequence of devices) or clear (None) the PairHMM mesh."""
+    _MESH[0] = None if mesh is None else tuple(mesh)
+
+
 def pairhmm_logl_pairs(
     reads: Sequence[Tuple[bytes, np.ndarray, int]],
     haps: Sequence[bytes],
@@ -256,14 +266,18 @@ def pairhmm_logl_pairs(
     """log10 likelihood per explicit (read, hap) pair — the cross-region
     batch entry (pairs from many assembly regions share ONE device
     dispatch). f32 wavefront with f64 host rescue. The backend is the
-    device (``None``: the session default): the kernel on ``cuda``, its
-    plain version on ``cpu``."""
+    device (``None``: the session default, or the PairHMM mesh when one
+    is set, one contiguous chunk of pairs per mesh entry): the kernel on
+    ``cuda``, its plain version on ``cpu``."""
     from . import pairhmm_cuda
 
     if len(pair_r) == 0:
         return np.zeros(0, np.float64)
-    return pairhmm_cuda.pairhmm_pairs(reads, haps, pair_r, pair_h,
-                                      _device.resolve(device))
+    if device is None and _MESH[0] is not None:
+        devices = tuple(_device.resolve(d) for d in _MESH[0])
+    else:
+        devices = (_device.resolve(device),)
+    return pairhmm_cuda.pairhmm_pairs(reads, haps, pair_r, pair_h, devices)
 
 
 def pairhmm_f32_batch(

@@ -445,16 +445,31 @@ def _pairhmm_forward_path(batch: PairBatch, tabs: PairHMMTables,
     return acc
 
 
-def pairhmm_pairs(reads, haps, pair_r, pair_h, device) -> np.ndarray:
-    """log10 likelihood per explicit (read, hap) pair on ``device`` (the
-    counterpart of pairhmm_pallas_pairs): pack on the host, one copy to
-    the device, the kernel (or, for the CPU, its plain version), then the
-    f64 host rescue of underflowed pairs."""
-    if len(pair_r) == 0:
+def pairhmm_pairs(reads, haps, pair_r, pair_h, devices) -> np.ndarray:
+    """log10 likelihood per explicit (read, hap) pair (the counterpart of
+    pairhmm_pallas_pairs): pack on the host, one copy to the device, the
+    kernel (or, for the CPU, its plain version), then the f64 host rescue
+    of underflowed pairs. The pair axis splits into one contiguous chunk
+    per entry of ``devices`` (one device, or the PairHMM mesh, which may
+    name a device more than once); every chunk is launched before any
+    result is read back, so chunks on different cards overlap. A pair's
+    value does not depend on its batch (padding invariance), so the split
+    is bit-exact."""
+    n = len(pair_r)
+    if n == 0:
         return np.zeros(0, np.float64)
-    dev = torch.device(device)
-    batch = pack_pairs(reads, haps, pair_r, pair_h).to(dev)
-    acc = pairhmm_forward(batch, default_tables(dev)).cpu().numpy()
+    pair_r = np.asarray(pair_r)
+    pair_h = np.asarray(pair_h)
+    per = -(-n // len(devices))
+    accs = []
+    for k, device in enumerate(devices):
+        sl = slice(k * per, min(n, (k + 1) * per))
+        if sl.start >= n:
+            break
+        dev = torch.device(device)
+        batch = pack_pairs(reads, haps, pair_r[sl], pair_h[sl]).to(dev)
+        accs.append(pairhmm_forward(batch, default_tables(dev)))
+    acc = np.concatenate([a.cpu().numpy() for a in accs])
     with np.errstate(divide="ignore"):
         out = np.log10(acc.astype(np.float64)) - F32_INITIAL_POW * np.log10(2.0)
     # f64 rescue for underflow (GATK float->double strategy), on the host

@@ -40,7 +40,8 @@ NEXT_REVERSED = 0x20
 
 
 def _as_i64(a, dev: torch.device) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(a)).to(device=dev, dtype=torch.int64)
+    t = a if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a))
+    return t.to(device=dev, dtype=torch.int64)
 
 
 def _pair_key(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:

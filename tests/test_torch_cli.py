@@ -2,9 +2,9 @@
 HaplotypeCaller, duplicate-marking, metrics and BQSR goldens byte for
 byte, the same outputs as ``python -m elprep_tpu`` record for record
 (the 5-step pipeline serial and pooled, split/merge, sfm, directory
-inputs, merge-optical-duplicates-metrics), the converters, the refusal
-of the option not yet ported, and no silent CPU run when cuda is asked
-for and absent."""
+inputs, merge-optical-duplicates-metrics), the converters, ``--sharded``
+against the plain run, and no silent CPU run when cuda is asked for and
+absent."""
 
 import gzip
 import os
@@ -394,15 +394,31 @@ def test_cuda_unavailable_raises_in_library_functions():
         dispatch.routes_to_host(3, "cuda")
 
 
-@pytest.mark.parametrize("flags", [["--sharded"]])
-def test_unported_options_are_refused(tmp_path, on_cpu, capsys, flags):
-    out = tmp_path / "out.sam"
-    rc = cli.main(["filter", os.path.join(FIXTURES, "hc_golden.in.sam"), str(out),
-                   *flags])
-    assert rc != 0
-    err = capsys.readouterr().err
-    assert "not yet ported" in err and flags[0] in err
-    assert not out.exists()
+@pytest.mark.parametrize("extra", [
+    ["--mark-duplicates", "--sorting-order", "coordinate"],
+    ["--sorting-order", "coordinate", "--haplotypecaller", "{out}.vcf",
+     "--reference-confidence", "NONE"],
+], ids=["dedup_sort", "hc_only"])
+def test_sharded_option_runs_and_matches_plain(tmp_path, on_cpu, extra):
+    """``--sharded`` runs (it was refused before the parallel modules were
+    ported) and writes what the plain run writes: with duplicate marking
+    and a coordinate sort the sharded sort/dedup, without them only the
+    PairHMM over the mesh."""
+    ref = str(tmp_path / "ref.elfasta")
+    assert cli.main(["fasta-to-elfasta",
+                     os.path.join(FIXTURES, "hc_golden.ref.fasta"), ref]) == 0
+    outs = {}
+    for tag, flags in (("plain", []), ("sharded", ["--sharded"])):
+        out = str(tmp_path / tag)
+        assert cli.main(["filter", os.path.join(FIXTURES, "hc_golden.in.sam"),
+                         out + ".sam", "--reference", ref,
+                         *[a.format(out=out) for a in extra], *flags]) == 0
+        outs[tag] = out
+    assert _records(outs["sharded"] + ".sam") == _records(outs["plain"] + ".sam")
+    if "--haplotypecaller" in extra:
+        body = _vcf_body(outs["sharded"] + ".vcf")
+        assert body == _vcf_body(outs["plain"] + ".vcf")
+        assert any(ln and not ln.startswith(b"#") for ln in body)
 
 
 # ---------------------------------------------------------------------------

@@ -476,3 +476,65 @@ def test_pooled_call_variants_on_cuda_equals_serial(cuda, monkeypatch, mode, dis
     finally:
         device.set_default_device(old)
     assert out[2] == out[1] and out[1]
+
+
+@pytest.mark.cuda
+def test_pairhmm_sharded_on_two_card_entries_equals_plain(cuda):
+    """pairhmm_sharded over the mesh (cuda:0, cuda:0): one launch per
+    mesh entry, each on half of the pairs, bit-equal to the plain version
+    on the card over all pairs, and to the CPU's plain version after the
+    same log10 and rescue."""
+    from elprep_tpu_torch.parallel import pairhmm_sharded
+
+    reads, haps, pair_r, pair_h = _case(31, [100, 120, 151, 90, 77, 140, 3], [250, 400, 333])
+    n0, by0 = _launches()
+    got = pairhmm_sharded((cuda, cuda), reads, haps)
+    n1, by1 = _launches()
+    assert n1 - n0 == 2 and by1["warp"] - by0["warp"] == 2
+    assert pairhmm._MESH[0] is None
+    batch = pc.pack_pairs(reads, haps, pair_r, pair_h).to(cuda)
+    plain = pc.pairhmm_forward_plain(batch, pc.default_tables(cuda)).cpu().numpy()
+    with np.errstate(divide="ignore"):
+        want = np.log10(plain.astype(np.float64)) - pc.F32_INITIAL_POW * np.log10(2.0)
+    kept = np.isfinite(want) & (want >= pc.F32_RESCUE_LOG10)
+    assert kept.sum() >= 5
+    np.testing.assert_array_equal(got.reshape(-1)[kept], want[kept])
+    np.testing.assert_array_equal(got, pairhmm.pairhmm_f32_batch(reads, haps, device="cpu"))
+
+
+@pytest.mark.cuda
+def test_world_of_one_nccl_all_reduce_of_int64_tables(cuda):
+    """The port's collective helpers on NCCL in a world of one: the int64
+    table sum keeps values past 2^31, the MAX reduce, the all_gather and
+    the plan check run on the card; COLLECTIVES records each."""
+    import socket
+
+    import torch.distributed as dist
+
+    from elprep_tpu_torch.parallel import sharded
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    try:
+        n0 = len(sharded.COLLECTIVES)
+        tables = torch.arange(6 * 94, dtype=torch.int64, device=cuda) + 2**40
+        want = tables.clone()
+        sharded._all_reduce(tables, "sum")
+        assert torch.equal(tables, want)
+        mac = torch.tensor([17], dtype=torch.int64, device=cuda)
+        sharded._all_reduce(mac, "max")
+        assert int(mac) == 17
+        sharded._check_replicated(4096, cuda)
+        got = sharded._fetch([torch.tensor([1, 0, 1], device=cuda, dtype=torch.bool),
+                              torch.tensor([0, 1, 1], device=cuda, dtype=torch.bool)],
+                             (cuda, cuda))
+        assert got.tolist() == [1, 0, 1, 0, 1, 1]
+        assert [op for op, _ in sharded.COLLECTIVES[n0:]] == [
+            "all_reduce_sum", "all_reduce_max", "all_reduce_max", "all_gather"]
+        assert sharded.COLLECTIVES[n0][1] == 6 * 94 * 8
+    finally:
+        dist.destroy_process_group()

@@ -1,6 +1,7 @@
 """The port imports neither jax nor the JAX package: every module of
-elprep_tpu_torch, and chip_smoke.py, import in a fresh interpreter whose
-import system refuses ``jax`` and ``elprep_tpu``. It runs as a subprocess
+elprep_tpu_torch (parallel/ included, whose import joins no process
+group), and chip_smoke.py, import in a fresh interpreter whose import
+system refuses ``jax`` and ``elprep_tpu``. It runs as a subprocess
 because this test process already holds jax (tests/conftest.py)."""
 
 import os
@@ -33,6 +34,13 @@ import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "elprep_tpu"))
 assert not bad, bad
+parallel = {n for n in names if n.startswith("elprep_tpu_torch.parallel")}
+assert parallel == {"elprep_tpu_torch.parallel"} | {
+    "elprep_tpu_torch.parallel." + m
+    for m in ("mesh", "sharded", "pipeline", "multihost")}, parallel
+# importing the multi-process runner joins no process group
+import torch.distributed as dist
+assert not dist.is_initialized()
 print(len(names))
 """
 
