@@ -7,16 +7,21 @@
 Phases, each of which must pass:
 
 1. build: compile the port's CUDA kernels from the sources in this
-   checkout (csrc/*.cu, one nvcc each, started together);
-2. kernel: the PairHMM kernels at full width (8192 pairs, the pooled
-   dispatch size; reads 100-151 bp, haplotypes 250-600 bp, some 'N'
-   bases), through the warp path (which the plan picks for them) and,
-   forced, the CTA path, each against the plain PyTorch version on the
-   card (bit for bit); the warp path against the f64 oracle on 64
-   sampled pairs (within 5e-4 log10); each path's time in turns in this
-   run, the plain version's time and the bound; then 256 pairs with
-   reads of 300-1500 bp, which only the CTA path takes, against the plain
-   version;
+   checkout (csrc/*.cu, one nvcc each, started together); ptxas's
+   registers, stack and spill bytes per kernel, and no spill in the
+   stripe kernel;
+2. kernel: the PairHMM kernels at full width, batch by batch: 8192 pairs
+   of reads of 100-151 bp against haplotypes of 250-600 bp (the pooled
+   dispatch size; the warp path, which the plan picks for them, and the
+   stripe and CTA paths forced), 8192 pairs of reads of 257-450 bp
+   against haplotypes of 300-650 bp ("long_hc", what 2x300 bp reads give
+   the HaplotypeCaller), 8192 pairs of short reads with one in ten of
+   257-300 bp ("mixed"), and 256 pairs of reads of 300-1500 bp against
+   haplotypes of 1600-2400 bp ("long_256"); the stripe path, which the
+   plan picks for the last three, and the CTA path forced. Each path bit
+   for bit the plain PyTorch version on the card, the plan's path within
+   5e-4 log10 of the f64 oracle on 64 sampled pairs, each path's time in
+   turns in this run, the plain version's time and the bound;
 3. golden: the port's CLI on cuda reproduces the duplicate-marking,
    metrics, BQSR and HaplotypeCaller goldens of tests/fixtures byte for
    byte (the HaplotypeCaller on the worker pool, started before this
@@ -56,15 +61,23 @@ Phases, each of which must pass:
    ``--sharded`` in this process on the warm pool, and through ``python
    -m elprep_tpu_torch.parallel.multihost`` as a fresh process (a world
    of one on NCCL), both byte-equal to the pooled run;
-8. slice: the earlier ``filter --sorting-order coordinate
+8. 2x300: the 5-step command on 20 000 reads of 300 bp (10 000 pairs,
+   the MiSeq v3 2x300 shape) over a 200 kb genome with a SNP every ~1 kb
+   and a hypervariable stretch every ~20 kb (8-10 SNPs 25-35 bp apart),
+   pooled on the warm pool and serially: every check of the 5-step runs,
+   the stripe path launched, every PairHMM batch whose longest read is
+   over 256 bases on it and every other on the warp path, ALT calls inside
+   the stretches, pooled == serial byte for byte;
+9. slice: the earlier ``filter --sorting-order coordinate
    --haplotypecaller --reference-confidence GVCF`` on 30 000 reads, its
    launches again all on the warp path.
 
 Prints the card (nvidia-smi name and power limit), one JSON line with
 the device programs' numbers (the sharded ones' launches from the
-in-process ``--sharded`` run), one with the kernels' numbers (launches
-from the cold pooled 5-step run, the warm, serial, sfm and sharded runs'
-beside them),
+in-process ``--sharded`` run), one with the kernels' numbers (the warp
+path's launches from the cold pooled 5-step run, the warm, serial, sfm
+and sharded runs' beside them; the stripe path's from the pooled 2x300
+run, the serial one's beside them),
 and as its last line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Exits non-zero,
 printing no result, without a CUDA device or outside a checkout of the
@@ -104,12 +117,19 @@ PEAK_F32_OPS_NO_FMA = 132 * 128 * 1.98e9
 # with (I2 + D2) * i2m as one multiply); the kernels' bit-exact order
 # multiplies I2 and D2 by i2m apart, one multiply more
 OPS_PER_CELL = 11
-KERNEL_OPS_PER_CELL = 12
 
 KERNEL_PAIRS = 8192
 FIVE_STEP_READS = 120_000
 SLICE_READS = 30_000
 SLICE_CONTIGS = [("chr1", 1_200_000), ("chr2", 800_000)]
+# the 2x300 bp 5-step fixture: 300 bp read pairs (MiSeq v3 600-cycle kits)
+# at about 30x over a 200 kb genome, SNPs every ~1 kb and a hypervariable
+# stretch every ~20 kb
+LONG_READS = 20_000
+LONG_READ_LEN = 300
+LONG_CONTIGS = [("chr1", 120_000), ("chr2", 80_000)]
+LONG_STRETCH_EVERY = 20_000
+LONG_MISMATCH_RATE = 0.005
 
 
 def _log(msg: str) -> None:
@@ -176,12 +196,47 @@ def build_phase() -> dict:
         libs = {k: f.result() for k, f in libs.items()}
     _log("build: %.1f s wall; the card's first use beside it %.1f s"
          % (time.perf_counter() - t0, warm_s))
+    reports = {name: ptxas_report(lib.build_log) for name, lib in libs.items()}
     for name, lib in libs.items():
-        _log("build %s: %.1f s; ptxas: %s" % (
-            name, lib.build_seconds,
-            " | ".join(ln.strip() for ln in lib.build_log.splitlines()
-                       if "registers" in ln or "spill" in ln)[:2000]))
-    return {k: lib.build_seconds for k, lib in libs.items()}
+        _log("build %s: %.1f s; ptxas per kernel: %s" % (name, lib.build_seconds, "; ".join(
+            "%s %d registers, %d B stack, %d B spill stores, %d B spill loads"
+            % (k, v["registers"], v["stack"], v["spill_stores"], v["spill_loads"])
+            for k, v in sorted(reports[name].items()))))
+    stripe = {k: v for k, v in reports["pairhmm"].items() if "stripe" in k}
+    if not stripe or any(v["spill_stores"] or v["spill_loads"] for v in stripe.values()):
+        raise AssertionError(f"stripe kernel instantiations spill (or ptxas reported "
+                             f"none): {stripe}")
+    return {"seconds": {k: lib.build_seconds for k, lib in libs.items()},
+            "stripe_ptxas": stripe}
+
+
+def ptxas_report(log: str) -> dict:
+    """{kernel: {"registers", "stack", "spill_stores", "spill_loads"}} from
+    the ``-Xptxas -v`` lines of an nvcc build log; a kernel is named by its
+    function and template arguments (pairhmm_warp_kernel<8>)."""
+    import re
+
+    out, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            f = re.search(r"\d(pairhmm_(?:warp_|stripe_)?kernel)(?:ILi(\d+)E)?",
+                          m.group(1))
+            cur = (f.group(1) + ("<%s>" % f.group(2) if f.group(2) else "")
+                   if f else m.group(1))
+            out[cur] = {"registers": 0, "stack": 0, "spill_stores": 0, "spill_loads": 0}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            out[cur].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                            spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[cur]["registers"] = int(m.group(1))
+    return out
 
 
 def _card_first_use() -> float:
@@ -215,9 +270,9 @@ def make_pairs(n_pairs: int, seed: int, reads_per_region: int = 8,
     """Synthetic HaplotypeCaller dispatch: regions of ``haps_per_region``
     haplotypes (``hap_len`` bp, by default 250-600, mutated copies of one
     reference window) and ``reads_per_region`` reads (``read_len`` bp, by
-    default 100-151, sampled from a haplotype with 2% errors and some 'N'
-    bases), every read against every haplotype of its region. Returns
-    (reads, haps, pair_r, pair_h)."""
+    default 100-151, no longer than the haplotype they are sampled from,
+    with 2% errors and some 'N' bases), every read against every haplotype
+    of its region. Returns (reads, haps, pair_r, pair_h)."""
     import numpy as np
 
     rng = np.random.RandomState(seed)
@@ -239,7 +294,7 @@ def make_pairs(n_pairs: int, seed: int, reads_per_region: int = 8,
         r0 = len(reads)
         for _ in range(reads_per_region):
             src = np.frombuffer(haps[h0 + rng.randint(haps_per_region)], np.uint8)
-            lr = rng.randint(read_len[0], read_len[1] + 1)
+            lr = rng.randint(read_len[0], min(read_len[1], len(src)) + 1)
             st = rng.randint(0, len(src) - lr + 1)
             seq = src[st : st + lr].copy()
             err = rng.rand(lr) < 0.02
@@ -253,6 +308,24 @@ def make_pairs(n_pairs: int, seed: int, reads_per_region: int = 8,
                 pair_h.append(h0 + h)
     return (reads, haps, np.asarray(pair_r[:n_pairs], np.int64),
             np.asarray(pair_h[:n_pairs], np.int64))
+
+
+def make_mixed_pairs(n_pairs: int, seed: int, long_share: float = 0.1):
+    """A pooled dispatch of short reads with some long ones among them:
+    ``long_share`` of the pairs from regions of 257-300 bp reads against
+    haplotypes of 320-650 bp, the rest from regions of 100-151 bp reads
+    (make_pairs), in one random order. Returns (reads, haps, pair_r,
+    pair_h)."""
+    import numpy as np
+
+    n_long = int(round(n_pairs * long_share))
+    sr, sh, spr, sph = make_pairs(n_pairs - n_long, seed)
+    lr_, lh_, lpr, lph = make_pairs(n_long, seed + 1, read_len=(257, 300),
+                                    hap_len=(320, 650))
+    pair_r = np.concatenate([spr, lpr + len(sr)])
+    pair_h = np.concatenate([sph, lph + len(sh)])
+    order = np.random.RandomState(seed + 2).permutation(n_pairs)
+    return sr + lr_, sh + lh_, pair_r[order], pair_h[order]
 
 
 def make_region(n_reads: int, n_haps: int, seed: int, read_len=(100, 151),
@@ -315,100 +388,138 @@ def _check_equal(name: str, got, plain) -> float:
     return err
 
 
-def kernel_phase(n_pairs: int = KERNEL_PAIRS, reps: int = 20,
-                 n_sample: int = 64) -> dict:
-    """The pooled dispatch size through both kernels (forced: the warp
-    path, which the plan picks for these reads, and the CTA path), each
-    bit-equal to the plain version; then a long-read batch that only the
-    CTA path takes."""
+def _oracle_check(name: str, got, reads, haps, pair_r, pair_h, n_sample: int,
+                  seed: int) -> float:
+    """Sampled pairs of a kernel's result against the f64 oracle, within
+    5e-4 log10: ``n_sample`` of the pairs the pipeline keeps from f32 (log10
+    >= -25); where the batch has fewer, of those whose f32 value is above
+    1e-60 (a normal float with margin; the pipeline rescues them in f64).
+    Returns the largest |log10 difference|."""
     import numpy as np
-    import torch
 
     from elprep_tpu_torch.ops import pairhmm as ph
     from elprep_tpu_torch.ops import pairhmm_cuda as pc
 
-    device = "cuda"
-    reads, haps, pair_r, pair_h = make_pairs(n_pairs, seed=5)
-    batch = pc.pack_pairs(reads, haps, pair_r, pair_h).to(device)
-    tabs = pc.default_tables(device)
-    plan = pc.launch_plan(batch.max_read_len)
-    if plan[0] != "warp":
-        raise AssertionError(f"{n_pairs} short-read pairs planned on {plan}")
-    plain = pc.pairhmm_forward_plain(batch, tabs)
-    got = pc._pairhmm_forward_path(batch, tabs, "warp")
-    cta = pc._pairhmm_forward_path(batch, tabs, "cta")
-    torch.cuda.synchronize()
-    err = max(_check_equal(f"warp kernel {plan}, {n_pairs} pairs", got, plain),
-              _check_equal(f"cta kernel {pc.launch_plan(batch.max_read_len, 'cta')}, "
-                           f"{n_pairs} pairs", cta, plain))
-
-    # f64 oracle on sampled pairs that the pipeline keeps from f32
     acc = got.cpu().numpy().astype(np.float64)
     with np.errstate(divide="ignore"):
         logl = np.log10(acc) - pc.F32_INITIAL_POW * np.log10(2.0)
     kept = np.flatnonzero(np.isfinite(logl) & (logl >= ph.F32_RESCUE_LOG10))
-    rng = np.random.RandomState(6)
-    sample = rng.choice(kept, min(n_sample, len(kept)), replace=False)
+    pool, what = kept, "kept from f32"
+    if len(kept) < n_sample:
+        pool = np.flatnonzero(np.isfinite(logl) & (logl >= -60.0))
+        what = "above 1e-60 in f32 (%d kept from f32)" % len(kept)
+    rng = np.random.RandomState(seed)
+    sample = rng.choice(pool, min(n_sample, len(pool)), replace=False)
     worst = 0.0
     for b in sample:
         seq, qual, mapq = reads[pair_r[b]]
-        exact = ph.pairhmm_f64_diag(seq, qual, mapq, haps[pair_h[b]])
-        worst = max(worst, abs(logl[b] - exact))
-    _log("kernel vs f64 oracle: %d sampled of %d pairs kept from f32 "
-         "(%d rescued in f64): max |log10 diff| %.3g"
-         % (len(sample), len(kept), n_pairs - len(kept), worst))
-    if len(sample) < n_sample or worst >= 5e-4:
-        raise AssertionError(f"f64 oracle check failed: {len(sample)} pairs, {worst}")
+        worst = max(worst, abs(logl[b] - ph.pairhmm_f64_diag(seq, qual, mapq,
+                                                             haps[pair_h[b]])))
+    _log("%s vs f64 oracle: %d sampled of the %d pairs %s, of %d: max |log10 diff| %.3g"
+         % (name, len(sample), len(pool), what, len(logl), worst))
+    if not len(sample) or worst >= 5e-4:
+        raise AssertionError(f"{name}: f64 oracle check failed: {len(sample)} pairs, {worst}")
+    return worst
 
+
+def _time_batch(name: str, pairs: tuple, paths: tuple, plan_path: str, reps: int,
+                n_sample: int, seed: int, plain_reps: int = 3) -> dict:
+    """One batch on the card through each of ``paths`` (forced), each bit
+    for bit the plain version; the plan must pick ``plan_path``, whose
+    result is held to the f64 oracle on sampled pairs; each path's time in
+    turns on these pairs (CUDA events, median of ``reps``), the plain
+    version's time and the bound."""
+    import torch
+
+    from elprep_tpu_torch.ops import pairhmm_cuda as pc
+
+    reads, haps, pair_r, pair_h = pairs
+    batch = pc.pack_pairs(reads, haps, pair_r, pair_h).to("cuda")
+    tabs = pc.default_tables("cuda")
+    plan = pc.launch_plan(batch.max_read_len, None, batch.max_hap_len)
+    if plan[0] != plan_path:
+        raise AssertionError(f"{name}: planned on {plan}, not {plan_path}")
+    plain = pc.pairhmm_forward_plain(batch, tabs)
+    got = {p: pc._pairhmm_forward_path(batch, tabs, p) for p in paths}
+    torch.cuda.synchronize()
+    err = max(_check_equal("%s kernel %s, %s" % (
+        p, pc.launch_plan(batch.max_read_len, p, batch.max_hap_len), name), got[p], plain)
+        for p in paths)
+    oracle = _oracle_check(f"{plan_path} kernel, {name}", got[plan_path], *pairs,
+                           n_sample, seed)
     cells = _cells(reads, haps, pair_r, pair_h)
     ops_ms, bytes_ms = _bound_ms(batch, cells)
-    times = _median_ms_turns({
-        "warp": lambda: pc._pairhmm_forward_path(batch, tabs, "warp"),
-        "cta": lambda: pc._pairhmm_forward_path(batch, tabs, "cta"),
-    }, reps)
-    plain_ms = _median_ms(lambda: pc.pairhmm_forward_plain(batch, tabs), 3)
+    bound_ms = max(ops_ms, bytes_ms)
+    times = _median_ms_turns({p: functools.partial(pc._pairhmm_forward_path, batch, tabs, p)
+                              for p in paths}, reps)
+    plain_ms = _median_ms(lambda: pc.pairhmm_forward_plain(batch, tabs), plain_reps)
     ceiling_ms = OPS_PER_CELL * cells / PEAK_F32_OPS_NO_FMA * 1e3
-    kernel_ceiling_ms = KERNEL_OPS_PER_CELL * cells / PEAK_F32_OPS_NO_FMA * 1e3
-    paths = {}
-    for name, ms in times.items():
-        paths[name] = {"ms": ms, "gcups": cells / ms / 1e6, "pairs": n_pairs,
-                       "cells": cells, "bound_ms": max(ops_ms, bytes_ms)}
-        _log("pairhmm %s: %d pairs, %d cells: %.4f ms median of %d (%.2f GCUPS); "
-             "bound %.4f ms (operations; bytes %.6f ms), %.1fx off it; without "
-             "FMA at best %.4f ms, %.1fx off that (%.4f ms at the kernels' %d "
-             "operations per cell)"
-             % (name, n_pairs, cells, ms, reps, cells / ms / 1e6, ops_ms, bytes_ms,
-                ms / ops_ms, ceiling_ms, ms / ceiling_ms, kernel_ceiling_ms,
-                KERNEL_OPS_PER_CELL))
-    _log("pairhmm: warp path %.2fx faster than the cta path (same run, same "
-         "pairs); plain version %.2f ms" % (times["cta"] / times["warp"], plain_ms))
+    lens = [len(reads[r][1]) for r in pair_r]
+    hlens = [len(haps[h]) for h in pair_h]
+    out = {"pairs": batch.n_pairs, "cells": cells, "bound_ms": bound_ms,
+           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+           "plain_ms": plain_ms, "max_abs_err": err, "oracle_max_log10": oracle,
+           "reads": [min(lens), max(lens)], "haps": [min(hlens), max(hlens)],
+           "paths": {}}
+    for p, ms in times.items():
+        out["paths"][p] = {"ms": ms, "gcups": cells / ms / 1e6,
+                           "plan": list(pc.launch_plan(batch.max_read_len, p,
+                                                       batch.max_hap_len))}
+        _log("pairhmm %s on %s: %d pairs (reads %d-%d, haps %d-%d), %d cells: %.4f ms "
+             "median of %d (%.2f GCUPS); bound %.4f ms (operations; bytes %.6f ms), "
+             "%.1fx off it; without FMA at best %.4f ms"
+             % (p, name, batch.n_pairs, min(lens), max(lens), min(hlens), max(hlens),
+                cells, ms, reps, cells / ms / 1e6, ops_ms, bytes_ms, ms / bound_ms,
+                ceiling_ms))
+    _log("pairhmm %s: %s; plain version %.2f ms" % (name, ", ".join(
+        "%s %.2fx the cta path's time" % (p, times["cta"] / times[p])
+        for p in paths if p != "cta"), plain_ms))
+    return out
 
-    # long reads: only the CTA path takes them
-    lreads, lhaps, lpr, lph = make_pairs(256, seed=8, read_len=(300, 1500),
-                                         hap_len=(1600, 2400))
-    lbatch = pc.pack_pairs(lreads, lhaps, lpr, lph).to(device)
-    lplan = pc.launch_plan(lbatch.max_read_len)
-    if lplan[0] != "cta":
-        raise AssertionError(f"long-read batch planned on {lplan}")
-    lplain = pc.pairhmm_forward_plain(lbatch, tabs)
-    lgot = pc.pairhmm_forward(lbatch, tabs)
-    torch.cuda.synchronize()
-    err = max(err, _check_equal(f"cta kernel {lplan}, 256 long-read pairs", lgot, lplain))
-    lcells = _cells(lreads, lhaps, lpr, lph)
-    lops_ms, lbytes_ms = _bound_ms(lbatch, lcells)
-    lms = _median_ms(lambda: pc.pairhmm_forward(lbatch, tabs), reps)
-    paths["cta_long"] = {"ms": lms, "gcups": lcells / lms / 1e6, "pairs": 256,
-                         "cells": lcells, "bound_ms": max(lops_ms, lbytes_ms)}
-    _log("pairhmm cta_long: 256 pairs (reads 300-1500, haps 1600-2400), %d cells: "
-         "%.4f ms median of %d (%.2f GCUPS); bound %.4f ms (operations; bytes "
-         "%.6f ms)" % (lcells, lms, reps, lcells / lms / 1e6, lops_ms, lbytes_ms))
-    return {"name": "pairhmm_forward", "route": "cuda",
-            "source": "elprep_tpu_torch/csrc/pairhmm.cu",
-            "replaces": "elprep_tpu/ops/pairhmm_pallas.py:39",
-            "max_abs_err": err, "ms": times["warp"], "plain_ms": plain_ms,
-            "bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "library_ms": None, "cells": cells, "pairs": n_pairs, "paths": paths}
+
+# the kernel phase's batches: (name, pairs, forced paths timed in turns,
+# the plan's path)
+def _kernel_batches(n_pairs: int) -> list:
+    return [
+        ("short", lambda: make_pairs(n_pairs, seed=5), ("warp", "stripe", "cta"), "warp"),
+        ("long_hc", lambda: make_pairs(n_pairs, seed=15, read_len=(257, 450),
+                                       hap_len=(300, 650)), ("stripe", "cta"), "stripe"),
+        ("mixed", lambda: make_mixed_pairs(n_pairs, seed=17), ("stripe", "cta"), "stripe"),
+        ("long_256", lambda: make_pairs(256, seed=8, read_len=(300, 1500),
+                                        hap_len=(1600, 2400)), ("stripe", "cta"), "stripe"),
+    ]
+
+
+def kernel_phase(n_pairs: int = KERNEL_PAIRS, reps: int = 20, n_sample: int = 64) -> dict:
+    """The PairHMM kernels at full width, one batch after the other
+    (_kernel_batches): the pooled dispatch size of short reads (the warp
+    path's; the stripe and CTA paths forced beside it), of the long reads
+    2x300 bp data gives the HaplotypeCaller ("long_hc", reads 257-450 bp,
+    haplotypes 300-650 bp), of short reads with one pair in ten long
+    ("mixed"), and 256 pairs of reads of 300-1500 bp against haplotypes of
+    1600-2400 bp ("long_256"); each path bit for bit the plain version, the
+    plan's path against the f64 oracle, the paths timed in turns. Returns
+    the kernels line's entries: the warp path on the short batch, the
+    stripe path on "long_hc", each with its batches."""
+    batches = {}
+    for k, (name, make, paths, plan_path) in enumerate(_kernel_batches(n_pairs)):
+        batches[name] = _time_batch(name, make(), paths, plan_path, reps, n_sample,
+                                    seed=6 + k)
+    common = {"route": "cuda", "source": "elprep_tpu_torch/csrc/pairhmm.cu",
+              "replaces": "elprep_tpu/ops/pairhmm_pallas.py:39", "library_ms": None}
+    short, long_hc = batches["short"], batches["long_hc"]
+    warp = dict(common, name="pairhmm_forward", ms=short["paths"]["warp"]["ms"],
+                max_abs_err=short["max_abs_err"], plain_ms=short["plain_ms"],
+                bound_ms=short["bound_ms"], bound_by=short["bound_by"],
+                cells=short["cells"], pairs=short["pairs"], paths=short["paths"])
+    stripe = dict(common, name="pairhmm_forward_stripe",
+                  ms=long_hc["paths"]["stripe"]["ms"],
+                  max_abs_err=max(b["max_abs_err"] for b in batches.values()),
+                  plain_ms=long_hc["plain_ms"], bound_ms=long_hc["bound_ms"],
+                  bound_by=long_hc["bound_by"], cells=long_hc["cells"],
+                  pairs=long_hc["pairs"],
+                  batches={k: v for k, v in batches.items() if k != "short"})
+    return {"warp": warp, "stripe": stripe}
 
 
 # ---------------------------------------------------------------------------
@@ -491,11 +602,22 @@ def golden_phase(workdir: str) -> None:
 # ---------------------------------------------------------------------------
 
 
-def make_reference(workdir: str, contigs=SLICE_CONTIGS) -> dict:
+def make_reference(workdir: str, contigs=SLICE_CONTIGS, stretch_every: int = 0,
+                   name: str = "slice", snps_every_kb: bool = True,
+                   stretch_snps=(8, 10), stretch_gap=(25, 35)) -> dict:
     """The synthetic genome of bench.py (seed 7) as .elfasta, and a copy of
-    it with a SNP planted about every kilobase, from which the reads are
-    sampled, so the HaplotypeCaller finds active regions to assemble and
-    score. Returns {"alt", "snps" [(contig, 0-based pos)], "elfasta"}."""
+    it with a SNP planted about every kilobase (unless ``snps_every_kb`` is
+    false), from which the reads are sampled, so the HaplotypeCaller finds
+    active regions to assemble and score. With ``stretch_every``, also a
+    hypervariable stretch about every ``stretch_every`` bases (seed 23):
+    ``stretch_snps`` SNPs (8-10) ``stretch_gap`` bp apart (25-35) spanning
+    218-232 bp, with no other planted SNP within 200 bp of it. Such a
+    stretch fills one active region (the activity reaches about 37 bp past
+    its first and last SNP, and a region holds at most 300 bp), whose
+    trimmed span plus its 20-base padding then exceeds 256 bases: a 300 bp
+    read over it reaches the PairHMM longer than 256 bases. Returns {"alt",
+    "snps" [(contig, 0-based pos)], "stretches" [(contig, first, last
+    0-based pos)], "elfasta"}."""
     import random
 
     import samgen
@@ -504,25 +626,47 @@ def make_reference(workdir: str, contigs=SLICE_CONTIGS) -> dict:
 
     genome = samgen.make_genome(contigs, seed=7)
     rng = random.Random(19)
-    alt, snps = {}, []
-    for name, ln in contigs:
-        seq = bytearray(genome[name])
-        for p in range(rng.randrange(500, 1500), ln, 1000):
+    alt, snps, stretches = {}, [], []
+    for cname, ln in contigs:
+        seq = bytearray(genome[cname])
+        for p in range(rng.randrange(500, 1500), ln if snps_every_kb else 0, 1000):
             p += rng.randrange(-300, 300)
             if seq[p : p + 1] in (b"A", b"C", b"G", b"T"):
                 seq[p] = ord(rng.choice([b for b in "ACGT" if ord(b) != seq[p]]))
-                snps.append((name, p))
-        alt[name] = bytes(seq)
-    fasta = os.path.join(workdir, "slice.fasta")
+                snps.append((cname, p))
+        alt[cname] = bytes(seq)
+    if stretch_every:
+        srng = random.Random(23)
+        for cname, ln in contigs:
+            seq = bytearray(alt[cname])
+            for k in range(stretch_every // 2, ln - 1000, stretch_every):
+                first = k + srng.randrange(-stretch_every // 8, stretch_every // 8)
+                gaps = []
+                while not 218 <= sum(gaps) <= 232:
+                    gaps = [srng.randint(*stretch_gap)
+                            for _ in range(srng.randint(*stretch_snps) - 1)]
+                pos = [first + sum(gaps[:g]) for g in range(len(gaps) + 1)]
+                lo, hi = pos[0] - 200, pos[-1] + 200
+                for c, p in [s for s in snps if s[0] == cname and lo <= s[1] <= hi]:
+                    seq[p] = genome[cname][p]
+                    snps.remove((c, p))
+                for p in pos:
+                    if seq[p : p + 1] in (b"A", b"C", b"G", b"T"):
+                        seq[p] = ord(srng.choice([b for b in "ACGT" if ord(b) != seq[p]]))
+                        snps.append((cname, p))
+                stretches.append((cname, pos[0], pos[-1]))
+            alt[cname] = bytes(seq)
+        snps.sort(key=lambda s: ([c for c, _ in contigs].index(s[0]), s[1]))
+    fasta = os.path.join(workdir, f"{name}.fasta")
     with open(fasta, "w") as fh:
-        for name, _ in contigs:
-            seq = genome[name].decode()
-            fh.write(f">{name}\n")
+        for cname, _ in contigs:
+            seq = genome[cname].decode()
+            fh.write(f">{cname}\n")
             fh.write("\n".join(seq[k : k + 70] for k in range(0, len(seq), 70)) + "\n")
-    elfasta = os.path.join(workdir, "slice.elfasta")
+    elfasta = os.path.join(workdir, f"{name}.elfasta")
     if cli.main(["fasta-to-elfasta", fasta, elfasta]) != 0:
         raise AssertionError("fasta-to-elfasta failed")
-    return {"alt": alt, "snps": snps, "elfasta": elfasta}
+    return {"alt": alt, "snps": snps, "stretches": stretches, "elfasta": elfasta}
 
 
 def _header(contigs):
@@ -570,14 +714,16 @@ def realign_soft_clips(lines: list) -> list:
 
 
 def make_five_step_fixture(workdir: str, ref: dict, n_reads: int = FIVE_STEP_READS,
-                           n_dups: int = 2_000, contigs=SLICE_CONTIGS) -> dict:
-    """bench.py's 5-step input: ``n_reads - n_dups`` reads (samgen, seed
-    11) from the planted genome, soft-clipped ones realigned (see
-    realign_soft_clips), then ``n_dups`` duplicate reads: copies of
-    sampled pairs under Illumina qnames, the second copy of each within
-    optical distance of the first (bench.py:59-71). Known sites: the
-    planted SNPs, as BED through the port's bed-to-elsites. Returns
-    {"sam", "sites", "n_reads"}."""
+                           n_dups: int = 2_000, contigs=SLICE_CONTIGS,
+                           read_len: int = 100, name: str = "five_step",
+                           mismatch_rate: float = 0.02) -> dict:
+    """bench.py's 5-step input: ``n_reads - n_dups`` reads of ``read_len``
+    bases (samgen, seed 11, ``mismatch_rate`` random base changes) from the
+    planted genome, soft-clipped ones realigned (see realign_soft_clips),
+    then ``n_dups`` duplicate reads: copies of sampled pairs under Illumina
+    qnames, the second copy of each within optical distance of the first
+    (bench.py:59-71). Known sites: the planted SNPs, as BED through the
+    port's bed-to-elsites. Returns {"sam", "sites", "n_reads"}."""
     import random
 
     import samgen
@@ -585,7 +731,8 @@ def make_five_step_fixture(workdir: str, ref: dict, n_reads: int = FIVE_STEP_REA
     from elprep_tpu_torch import cli
 
     lines = realign_soft_clips(samgen.reads_from_genome(
-        n_reads - n_dups, contigs, ref["alt"], seed=11, rg_ids=["rg1"]))
+        n_reads - n_dups, contigs, ref["alt"], seed=11, read_len=read_len,
+        rg_ids=["rg1"], mismatch_rate=mismatch_rate))
     rng = random.Random(13)
     dups = []
     while len(dups) + 4 <= n_dups:
@@ -598,22 +745,40 @@ def make_five_step_fixture(workdir: str, ref: dict, n_reads: int = FIVE_STEP_REA
                  f"{y + k * rng.randrange(0, 80)}")
             dups.append("\t".join([q] + f[1:]))
             dups.append("\t".join([q] + m[1:]))
-    sam = os.path.join(workdir, "five_step.sam")
+    sam = os.path.join(workdir, f"{name}.sam")
     with open(sam, "w") as fh:
         fh.write("\n".join(_header(contigs) + lines + dups) + "\n")
-    bed = os.path.join(workdir, "snps.bed")
+    bed = os.path.join(workdir, f"{name}.snps.bed")
     with open(bed, "w") as fh:
-        fh.writelines(f"{name}\t{p}\t{p + 1}\n" for name, p in ref["snps"])
-    sites = os.path.join(workdir, "snps.elsites")
+        fh.writelines(f"{cname}\t{p}\t{p + 1}\n" for cname, p in ref["snps"])
+    sites = os.path.join(workdir, f"{name}.snps.elsites")
     if cli.main(["bed-to-elsites", bed, sites]) != 0:
         raise AssertionError("bed-to-elsites failed")
     return {"sam": sam, "sites": sites, "n_reads": len(lines) + len(dups)}
 
 
+def make_long_read_fixture(workdir: str, n_reads: int = LONG_READS,
+                           contigs=LONG_CONTIGS, stretch_every: int = LONG_STRETCH_EVERY,
+                           **reference_options) -> tuple:
+    """The 2x300 bp 5-step input: a genome with SNPs every ~1 kb and a
+    hypervariable stretch every ``stretch_every`` bases (make_reference),
+    ``n_reads`` reads of 300 bp with 0.5% random base changes (samgen, the
+    soft-clipped ones realigned), 2% of them duplicates under Illumina
+    qnames; known sites = the planted SNPs. ``reference_options``: more of
+    make_reference's options. Returns (ref, fx)."""
+    ref = make_reference(workdir, contigs, stretch_every=stretch_every, name="long",
+                         **reference_options)
+    fx = make_five_step_fixture(workdir, ref, n_reads, n_reads // 50, contigs,
+                                read_len=LONG_READ_LEN, name="long",
+                                mismatch_rate=LONG_MISMATCH_RATE)
+    return ref, fx
+
+
 def _make_fixtures(workdir: str) -> tuple:
-    """The reference, the 5-step fixture and the slice's SAM, in a
-    spawned process (off the card) that runs beside the kernel, pool and
-    golden phases. Returns (ref, fx, slice SAM path, seconds)."""
+    """The reference, the 5-step fixture, the slice's SAM and the 2x300 bp
+    fixture, in a spawned process (off the card) that runs beside the
+    kernel, pool and golden phases. Returns (ref, fx, slice SAM path,
+    (long ref, long fx), seconds)."""
     os.environ["CUDA_VISIBLE_DEVICES"] = ""
     for path in (REPO, TESTS):
         if path not in sys.path:
@@ -622,7 +787,8 @@ def _make_fixtures(workdir: str) -> tuple:
     ref = make_reference(workdir)
     fx = make_five_step_fixture(workdir, ref)
     slice_sam = make_slice_fixture(workdir, ref, SLICE_READS)
-    return ref, fx, slice_sam, time.perf_counter() - t0
+    long = make_long_read_fixture(workdir)
+    return ref, fx, slice_sam, long, time.perf_counter() - t0
 
 
 # ---------------------------------------------------------------------------
@@ -924,6 +1090,23 @@ def _zero_pairhmm_counts():
     pc.LAUNCHES_BY_PATH.update({k: 0 for k in pc.LAUNCHES_BY_PATH})
 
 
+def _long_read_counts(what: str, tm) -> tuple:
+    """The launch counts of a run on long reads: the stripe path launched,
+    each launch whose batch's longest read is over 256 bases (``tm``'s
+    record of every launch) on it, every other on the warp path."""
+    from elprep_tpu_torch.ops import pairhmm_cuda as pc
+
+    launches, by_path = pc.LAUNCHES, dict(pc.LAUNCHES_BY_PATH)
+    n_long = sum(n > pc.WARP_MAX_READ_LEN for n in tm.longest)
+    if launches != len(tm.longest) or by_path["stripe"] <= 0:
+        raise AssertionError(f"the {what} run: {launches} launches ({by_path}) for "
+                             f"{len(tm.longest)} batches; the stripe path must launch")
+    if by_path != {"warp": launches - n_long, "stripe": n_long, "cta": 0}:
+        raise AssertionError(f"the {what} run: {n_long} batches with a read over "
+                             f"{pc.WARP_MAX_READ_LEN} bases, launches per path {by_path}")
+    return launches, by_path
+
+
 def _pairhmm_counts(what: str) -> tuple:
     from elprep_tpu_torch.ops import pairhmm_cuda as pc
 
@@ -1042,13 +1225,16 @@ def _out_paths(od: str) -> dict:
 
 def _run_five_step(workdir: str, fx: dict, elfasta: str, tag: str,
                    hc_workers: str = "", cold: bool = False,
-                   sharded: bool = False) -> dict:
+                   sharded: bool = False, long_reads: bool = False) -> dict:
     """One 5-step run through the CLI on cuda into ``workdir/tag``, with
     the device programs' and PairHMM counts of that run and its checks.
     ``hc_workers`` sets ELPREP_TPU_HC_WORKERS ("": the CLI's default).
     ``cold``: no pool is alive before the run, so the CLI's spawn of its
     workers is inside the timed window, as in a user's single run.
-    ``sharded``: with ``--sharded``, the two sharded programs counted too."""
+    ``sharded``: with ``--sharded``, the two sharded programs counted too.
+    ``long_reads``: the PairHMM launches need not all be on the warp path:
+    every launch whose longest read is over 256 bases must be on the stripe
+    path, every other on the warp path, and the stripe path launched."""
     import numpy as np
 
     from elprep_tpu_torch import cli
@@ -1083,7 +1269,8 @@ def _run_five_step(workdir: str, fx: dict, elfasta: str, tag: str,
             os.environ["ELPREP_TPU_HC_WORKERS"] = old
     if rc != 0:
         raise AssertionError(f"5-step {tag} run failed: rc {rc}")
-    launches, by_path = _pairhmm_counts(f"5-step {tag}")
+    launches, by_path = (_long_read_counts(f"5-step {tag}", tm) if long_reads
+                         else _pairhmm_counts(f"5-step {tag}"))
     counted = [ops, sops] if sharded else [ops]
     for name, calls in [kv for c in counted for kv in c.calls.items()]:
         if calls <= 0:
@@ -1149,7 +1336,7 @@ def _run_five_step(workdir: str, fx: dict, elfasta: str, tag: str,
             "phases": phases, "calls": calls, "device_s": device_s,
             "pairs": tm.pairs, "kernel_s": kernel_s, "workers": workers,
             "pools": pools, "out": out, "main_cpu_s": main_cpu_s,
-            "worker_cpu_s": worker_cpu_s}
+            "worker_cpu_s": worker_cpu_s, "longest_reads": list(tm.longest)}
 
 
 # formatted records of the BAMs read so far, by path
@@ -1468,7 +1655,51 @@ def sharded_phase(workdir: str, fx: dict, elfasta: str, pooled: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 8: the earlier slice (sort + HaplotypeCaller), at reduced depth
+# Phase 8: 2x300 bp reads through the 5-step command: the stripe path's run
+# ---------------------------------------------------------------------------
+
+
+def _stretch_calls(vcf: str, stretches: list) -> list:
+    """ALT calls (records with an ALT besides <NON_REF>) inside each
+    hypervariable stretch [first, last] (0-based) of a GVCF."""
+    _, variants = _gvcf_records(vcf)
+    calls = [(v.split(b"\t")[0].decode(), int(v.split(b"\t")[1]) - 1) for v in variants]
+    return [sum(1 for c, p in calls if c == contig and first <= p <= last)
+            for contig, first, last in stretches]
+
+
+def long_read_phase(workdir: str, ref: dict, fx: dict) -> dict:
+    """bench.py's 5-step command on 2x300 bp reads (make_long_read_fixture)
+    through the port's CLI on cuda, pooled on the warm pool and serially:
+    every check of the 5-step runs, with the PairHMM's launches on the
+    stripe path for every batch whose longest read is over 256 bases and on
+    the warp path for the others, the stripe path launched, ALT calls
+    inside the hypervariable stretches, and the pooled outputs byte-equal
+    to the serial run's."""
+    pooled = _run_five_step(workdir, fx, ref["elfasta"], "2x300-pooled", long_reads=True)
+    serial = _run_five_step(workdir, fx, ref["elfasta"], "2x300-serial", hc_workers="1",
+                            long_reads=True)
+    _same_outputs("2x300 5-step pooled", pooled["out"], "serial", serial["out"])
+    inside = _stretch_calls(pooled["out"]["vcf"], ref["stretches"])
+    if not any(inside):
+        raise AssertionError(f"2x300: no ALT call inside the {len(inside)} stretches")
+    for tag, run in (("pooled", pooled), ("serial", serial)):
+        longest = run["longest_reads"]
+        _log("2x300 %s: %d reads of %d bp in %.2f s = %.0f reads/s; PairHMM %d launches "
+             "(per path %s), %.1f pairs per launch, longest read at the PairHMM %d "
+             "bases, %d batches with a read over 256 bases"
+             % (tag, fx["n_reads"], LONG_READ_LEN, run["wall_s"], fx["n_reads"] / run["wall_s"],
+                run["launches"], json.dumps(run["launches_by_path"]),
+                run["pairs"] / run["launches"], max(longest),
+                sum(n > 256 for n in longest)))
+    _log("2x300 pooled == serial: BAM records, recal report, metrics body and GVCF body "
+         "byte-equal; ALT calls inside the %d hypervariable stretches: %s"
+         % (len(inside), inside))
+    return {"pooled": pooled, "serial": serial, "stretch_calls": inside}
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: the earlier slice (sort + HaplotypeCaller), at reduced depth
 # ---------------------------------------------------------------------------
 
 
@@ -1496,6 +1727,7 @@ class _PairHMMTimer:
         self.pack_s = 0.0
         self.events = []
         self.pairs = 0
+        self.longest = []  # the longest read of each batch launched on the card
 
     def __enter__(self):
         import torch
@@ -1530,6 +1762,7 @@ class _PairHMMTimer:
             e1.record()
             with self.lock:
                 self.events.append((e0, e1))
+                self.longest.append(batch.max_read_len)
             return out
 
         self.ph.pairhmm_logl_pairs = logl_t
@@ -1647,7 +1880,7 @@ def main() -> int:
         walls[name] = time.perf_counter() - t0
         return out
 
-    phase("build", build_phase)
+    build = phase("build", build_phase)
     if len(sys.argv) == 3 and sys.argv[1] == "--dispatch-ab":
         start_pool()
         workdir = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -1669,18 +1902,24 @@ def main() -> int:
 
         with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as ex:
             fixtures = ex.submit(_make_fixtures, workdir)
-            kernel = phase("kernel", kernel_phase)
+            kernels = phase("kernel", kernel_phase)
             pool = phase("pool", start_pool)
             phase("golden", golden_phase, workdir)
-            ref, fx, slice_sam, fixture_s = phase("fixture wait", fixtures.result)
-        _log("5-step fixture: %d reads over %d bp, %d known sites, and the slice's %d "
-             "reads, in %.1f s in a process beside the phases above"
+            ref, fx, slice_sam, (lref, lfx), fixture_s = phase("fixture wait",
+                                                                fixtures.result)
+        _log("5-step fixture: %d reads over %d bp, %d known sites, the slice's %d "
+             "reads, and the 2x300 fixture: %d reads of %d bp over %d bp, %d known "
+             "sites, %d hypervariable stretches; in %.1f s in a process beside the "
+             "phases above"
              % (fx["n_reads"], sum(n for _, n in SLICE_CONTIGS), len(ref["snps"]),
-                SLICE_READS, fixture_s))
+                SLICE_READS, lfx["n_reads"], LONG_READ_LEN,
+                sum(n for _, n in LONG_CONTIGS), len(lref["snps"]),
+                len(lref["stretches"]), fixture_s))
         ops = phase("device ops", device_ops_phase, fx, ref["elfasta"])
         five = phase("5-step", five_step_phase, workdir, fx, ref["elfasta"])
         sfm = phase("sfm", sfm_phase, workdir, fx, ref["elfasta"], five["pooled"]["out"])
         shd = phase("sharded", sharded_phase, workdir, fx, ref["elfasta"], five["pooled"])
+        longr = phase("2x300", long_read_phase, workdir, lref, lfx)
         earlier = phase("slice", slice_phase, workdir, ref, slice_sam)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
@@ -1699,6 +1938,7 @@ def main() -> int:
          "rows": shd["library"][name]["rows"], "mesh": SHARDED_MESH_ENTRIES}
         for name, source, replaces in SHARDED_OPS]}), flush=True)
     pooled, warm, serial = five["pooled"], five["warm"], five["serial"]
+    kernel, stripe = kernels["warp"], kernels["stripe"]
     kernel["launches"] = pooled["launches"]
     kernel["launches_by_path"] = pooled["launches_by_path"]
     kernel["pairs_per_launch"] = pooled["pairs"] / pooled["launches"]
@@ -1708,16 +1948,23 @@ def main() -> int:
     kernel["launches_sfm"] = sfm["launches"]
     kernel["launches_sharded"] = shd["run"]["launches"]
     kernel["launches_sort_hc"] = earlier["launches"]
+    lpooled, lserial = longr["pooled"], longr["serial"]
+    stripe["launches"] = lpooled["launches_by_path"]["stripe"]
+    stripe["launches_by_path_2x300"] = lpooled["launches_by_path"]
+    stripe["pairs_per_launch_2x300"] = lpooled["pairs"] / lpooled["launches"]
+    stripe["longest_read_2x300"] = max(lpooled["longest_reads"])
+    stripe["launches_2x300_serial"] = lserial["launches_by_path"]["stripe"]
+    stripe["ptxas"] = build["stripe_ptxas"]
     _log("5-step walls: pooled %.2f s from cold (%d workers of os.cpu_count() %d, "
          "spawn included; a pool alone starts and answers in %.2f s), %.2f s on the "
          "warm pool, serial %.2f s; sfm %.2f s; --sharded %.2f s on the warm pool, "
-         "%.2f s through the multi-process runner"
+         "%.2f s through the multi-process runner; 2x300 %.2f s pooled, %.2f s serial"
          % (pooled["wall_s"], pooled["workers"], pool["cpu_count"], pool["start_s"],
             warm["wall_s"], serial["wall_s"], sfm["wall_s"], shd["run"]["wall_s"],
-            shd["multihost"]["wall_s"]))
+            shd["multihost"]["wall_s"], lpooled["wall_s"], lserial["wall_s"]))
     _log("smoke: %.1f s wall; phases: %s" % (
         time.perf_counter() - t_start, "; ".join("%s %.1f s" % kv for kv in walls.items())))
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+    print(json.dumps({"kernels": [kernel, stripe]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),
           flush=True)

@@ -3,10 +3,12 @@
 launch counters.
 
 This is the counterpart of ``elprep_tpu/ops/pairhmm_pallas.py``: the
-kernels replace the Pallas TPU wavefront ``pairhmm_pallas._kernel``. Two
+kernels replace the Pallas TPU wavefront ``pairhmm_pallas._kernel``. Three
 kernels compute the same function, bit for bit; ``launch_plan`` picks one
 per batch from its longest read: the warp-per-pair kernel ("warp") up to
-``WARP_MAX_READ_LEN`` bases, the CTA-per-pair kernel ("cta") above.
+``WARP_MAX_READ_LEN`` bases, the warp-per-pair kernel that sweeps a long
+read in stripes of rows ("stripe") above. The CTA-per-pair kernel ("cta")
+runs only when a caller forces it.
 
 Inputs travel as one :class:`PairBatch`: the distinct reads and
 haplotypes of a dispatch, each stored once (bases, modified qualities and
@@ -43,7 +45,7 @@ from .pairhmm import (F32_INITIAL_POW, F32_RESCUE_LOG10, modified_qualities,
 # kernel launches so far, in all and per path (the wrapper adds one where
 # it launches a kernel, nowhere else)
 LAUNCHES = 0
-LAUNCHES_BY_PATH = {"warp": 0, "cta": 0}
+LAUNCHES_BY_PATH = {"warp": 0, "stripe": 0, "cta": 0}
 
 # The HaplotypeCaller pool may dispatch from several threads at once
 # (ELPREP_TPU_PAIRHMM_DISPATCH_WORKERS > 1). This lock covers the three
@@ -70,6 +72,15 @@ MAX_READ_LEN = MAX_THREADS * MAX_ROWS_PER_THREAD
 WARP_MAX_ROWS = 8
 WARP_MAX_READ_LEN = 32 * WARP_MAX_ROWS
 WARPS_PER_CTA = 4
+# the stripe kernel's: one warp per pair, a read swept in stripes of rows,
+# the first of ceil(lr0 / 32) rows per lane for its first lr0 (1..256)
+# rows, each below it 32 * STRIPE_ROWS rows; up to STRIPE_WARPS_PER_CTA
+# pairs per CTA, fewer when the longest haplotype needs more shared memory
+# than a block may take (the H100's opt-in limit below on the CPU, the
+# card's own on cuda)
+STRIPE_ROWS = 8
+STRIPE_WARPS_PER_CTA = 4
+SMEM_PER_BLOCK_H100 = 232448
 
 _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc", "pairhmm.cu")
@@ -144,11 +155,12 @@ class PairBatch:
     aligned), on one device. ``field(name)`` returns a typed view."""
 
     def __init__(self, blob: torch.Tensor, layout: Dict[str, Tuple[int, int, type]],
-                 max_read_len: int, n_pairs: int):
+                 max_read_len: int, n_pairs: int, max_hap_len: int):
         self.blob = blob
         self.layout = layout
         self.max_read_len = max_read_len
         self.n_pairs = n_pairs
+        self.max_hap_len = max_hap_len
 
     @classmethod
     def from_arrays(cls, arrays: Dict[str, np.ndarray]) -> "PairBatch":
@@ -163,10 +175,11 @@ class PairBatch:
             o, n, _ = layout[name]
             blob[o : o + n * np.dtype(dt).itemsize] = np.ascontiguousarray(
                 arrays[name], dt).view(np.uint8)
-        lens = arrays["read_lengths"]
+        lens, hlens = arrays["read_lengths"], arrays["hap_lengths"]
         return cls(torch.from_numpy(blob), layout,
                    int(lens.max()) if lens.size else 0,
-                   int(arrays["pair_read"].size))
+                   int(arrays["pair_read"].size),
+                   int(hlens.max()) if hlens.size else 0)
 
     @property
     def device(self) -> torch.device:
@@ -179,7 +192,7 @@ class PairBatch:
 
     def to(self, device) -> "PairBatch":
         return PairBatch(self.blob.to(device), self.layout, self.max_read_len,
-                         self.n_pairs)
+                         self.n_pairs, self.max_hap_len)
 
 
 def pack_pairs(reads: Sequence[Tuple[bytes, np.ndarray, int]],
@@ -305,21 +318,41 @@ class _Library:
         self.build_log = log
         lib = ctypes.CDLL(path)
         P = ctypes.c_void_p
-        for fn in (lib.pairhmm_forward, lib.pairhmm_forward_warp):
+        for fn in (lib.pairhmm_forward, lib.pairhmm_forward_warp,
+                   lib.pairhmm_forward_stripe):
             fn.argtypes = [P] * 15 + [ctypes.c_float, ctypes.c_float, P,
                                       ctypes.c_int, ctypes.c_int, ctypes.c_int, P]
             fn.restype = ctypes.c_int
         lib.pairhmm_error_string.argtypes = [ctypes.c_int]
         lib.pairhmm_error_string.restype = ctypes.c_char_p
-        lib.pairhmm_max_rows_per_thread.restype = ctypes.c_int
-        lib.pairhmm_max_threads.restype = ctypes.c_int
-        lib.pairhmm_warp_max_rows_per_lane.restype = ctypes.c_int
+        for fn in (lib.pairhmm_stripe_smem_bytes, lib.pairhmm_smem_per_block_optin):
+            fn.argtypes = [ctypes.c_int]
+        for fn in (lib.pairhmm_max_rows_per_thread, lib.pairhmm_max_threads,
+                   lib.pairhmm_warp_max_rows_per_lane, lib.pairhmm_stripe_rows_per_lane,
+                   lib.pairhmm_stripe_smem_bytes, lib.pairhmm_smem_per_block_optin):
+            fn.restype = ctypes.c_int
         if (lib.pairhmm_max_rows_per_thread() != MAX_ROWS_PER_THREAD
                 or lib.pairhmm_max_threads() != MAX_THREADS
-                or lib.pairhmm_warp_max_rows_per_lane() != WARP_MAX_ROWS):
+                or lib.pairhmm_warp_max_rows_per_lane() != WARP_MAX_ROWS
+                or lib.pairhmm_stripe_rows_per_lane() != STRIPE_ROWS
+                or any(lib.pairhmm_stripe_smem_bytes(lh) != stripe_smem_bytes(lh)
+                       for lh in (0, 1, 5, 650, 2400, 16384))):
             raise RuntimeError(f"{path}: launch limits disagree with the wrapper")
         self.lib = lib
-        self.entry = {"cta": lib.pairhmm_forward, "warp": lib.pairhmm_forward_warp}
+        self.entry = {"cta": lib.pairhmm_forward, "warp": lib.pairhmm_forward_warp,
+                      "stripe": lib.pairhmm_forward_stripe}
+        self._smem: Dict[int, int] = {}
+
+    def smem_per_block(self, dev: torch.device) -> int:
+        """The most shared memory a block may take on ``dev`` (the opt-in
+        limit), asked of the CUDA runtime once per card."""
+        idx = dev.index if dev.index is not None else torch.cuda.current_device()
+        if idx not in self._smem:
+            v = self.lib.pairhmm_smem_per_block_optin(idx)
+            if v <= 0:
+                raise RuntimeError(f"cannot read the shared memory limit of cuda:{idx}")
+            self._smem[idx] = v
+        return self._smem[idx]
 
 
 _LIB: list = []
@@ -344,12 +377,13 @@ def library() -> _Library:
 
 
 def _build_library() -> _Library:
+    """The library for this source, built unless a build of it is already
+    there; its nvcc log (ptxas's registers and spills) is kept beside it."""
     with open(_SRC, "rb") as fh:
         src = fh.read()
     key = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
     path = os.path.join(_BUILD_DIR, f"libpairhmm_{key}.so")
     t0 = time.perf_counter()
-    log = ""
     if not os.path.exists(path):
         os.makedirs(_BUILD_DIR, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
@@ -360,31 +394,73 @@ def _build_library() -> _Library:
             log = proc.stdout + proc.stderr
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed building {_SRC}:\n{log}")
+            with open(tmp + ".log", "w") as fh:
+                fh.write(log)
+            os.replace(tmp + ".log", path + ".log")
             os.replace(tmp, path)
         finally:
-            if os.path.exists(tmp):
-                os.remove(tmp)
+            for f in (tmp, tmp + ".log"):
+                if os.path.exists(f):
+                    os.remove(f)
+    log_path = path + ".log"
+    log = open(log_path).read() if os.path.exists(log_path) else ""
     return _Library(path, time.perf_counter() - t0, log)
 
 
-def launch_plan(max_read_len: int, path: Optional[str] = None) -> Tuple[str, int, int]:
+def stripe_smem_bytes(max_hap_len: int) -> int:
+    """Shared memory of one warp on the stripe path for haplotypes of up to
+    ``max_hap_len`` bases: the boundary row (M, I, D as float32 for each
+    of ``cap`` columns) and the haplotype's bases (``cap`` bytes and room
+    for the alignment of their copy), 16-byte aligned; ``cap`` is the
+    length rounded up to 4 (csrc/pairhmm.cu: stripe_smem_bytes)."""
+    cap = max(4, -(-max_hap_len // 4) * 4)
+    return 12 * cap + -(-(cap + 8) // 16) * 16
+
+
+def stripe_rows(read_len: int) -> Tuple[int, ...]:
+    """Rows per lane of each stripe the stripe path sweeps for a read of
+    ``read_len`` bases, top first: ceil(lr0 / 32) for the first lr0 =
+    read_len - 256 * n rows (1..256), then STRIPE_ROWS for each of the n
+    stripes of 256 rows below. A read of up to 256 bases is one stripe, as
+    on the warp path."""
+    per = 32 * STRIPE_ROWS
+    n_full = (read_len - 1) // per if read_len > per else 0
+    lr0 = read_len - per * n_full
+    return (max(1, -(-lr0 // 32)),) + (STRIPE_ROWS,) * n_full
+
+
+def launch_plan(max_read_len: int, path: Optional[str] = None, max_hap_len: int = 0,
+                smem_per_block: int = SMEM_PER_BLOCK_H100) -> Tuple[str, int, int]:
     """(path, threads, rows per thread) for a batch whose longest read has
-    ``max_read_len`` bases. Up to WARP_MAX_READ_LEN bases the "warp" path:
-    WARPS_PER_CTA warps per CTA, one pair per warp, at most
-    ceil(max_read_len / 32) rows per lane (the kernel's instantiation; each
-    warp takes ceil(lr / 32) for its own pair). Above it the "cta" path:
-    one CTA per pair, rows per
-    thread the smallest power of two that fits the read in MAX_THREADS
-    threads. ``path`` forces one of the two for a batch it can take."""
+    ``max_read_len`` bases and whose longest haplotype ``max_hap_len``. Up
+    to WARP_MAX_READ_LEN bases the "warp" path: WARPS_PER_CTA warps per CTA,
+    one pair per warp, at most ceil(max_read_len / 32) rows per lane (the
+    kernel's instantiation; each warp takes ceil(lr / 32) for its own
+    pair). Above it, up to MAX_READ_LEN, the "stripe" path: one pair per
+    warp, STRIPE_ROWS rows per lane in a full stripe (``stripe_rows``), as
+    many warps per CTA, up to STRIPE_WARPS_PER_CTA, as ``smem_per_block``
+    holds at ``stripe_smem_bytes(max_hap_len)`` each; a haplotype that does
+    not fit with one warp per CTA raises. The "cta" path, one CTA per pair
+    with rows per thread the smallest power of two that fits the read in
+    MAX_THREADS threads, only when forced. ``path`` forces one of the three
+    for a batch it can take."""
     if max_read_len > MAX_READ_LEN:
         raise ValueError(f"read of {max_read_len} bases exceeds {MAX_READ_LEN}")
     if path is None:
-        path = "warp" if max_read_len <= WARP_MAX_READ_LEN else "cta"
+        path = "warp" if max_read_len <= WARP_MAX_READ_LEN else "stripe"
     if path == "warp":
         if max_read_len > WARP_MAX_READ_LEN:
             raise ValueError(f"read of {max_read_len} bases exceeds the warp "
                              f"path's {WARP_MAX_READ_LEN}")
         return "warp", 32 * WARPS_PER_CTA, max(1, -(-max_read_len // 32))
+    if path == "stripe":
+        per_warp = stripe_smem_bytes(max_hap_len)
+        warps = min(STRIPE_WARPS_PER_CTA, smem_per_block // per_warp)
+        if warps < 1:
+            raise ValueError(f"PairHMM stripe path: a haplotype of {max_hap_len} bases "
+                             f"needs {per_warp} bytes of shared memory per warp, more "
+                             f"than the {smem_per_block} a block may take")
+        return "stripe", 32 * warps, STRIPE_ROWS
     if path != "cta":
         raise ValueError(f"unknown PairHMM path {path!r}")
     rows = 1
@@ -405,10 +481,10 @@ def pairhmm_forward(batch: PairBatch, tabs: PairHMMTables) -> torch.Tensor:
 
 def _pairhmm_forward_path(batch: PairBatch, tabs: PairHMMTables,
                           path: Optional[str]) -> torch.Tensor:
-    """pairhmm_forward on a forced ``path`` ("warp" or "cta"; None: the
-    plan's). For the tests and chip_smoke.py only."""
+    """pairhmm_forward on a forced ``path`` ("warp", "stripe" or "cta";
+    None: the plan's). For the tests and chip_smoke.py only."""
     global LAUNCHES
-    path, threads, rows = launch_plan(batch.max_read_len, path)
+    launch_plan(batch.max_read_len, path)  # a path that cannot take the batch raises
     dev = batch.device
     for name, t in (("mp", tabs.mp), ("nmp", tabs.nmp), ("m2m", tabs.m2m),
                     ("m2i", tabs.m2i)):
@@ -424,6 +500,8 @@ def _pairhmm_forward_path(batch: PairBatch, tabs: PairHMMTables,
     if batch.n_pairs == 0:
         return acc
     lib = library()
+    path, threads, rows = launch_plan(batch.max_read_len, path, batch.max_hap_len,
+                                      lib.smem_per_block(dev))
     f = batch.field
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -435,7 +513,8 @@ def _pairhmm_forward_path(batch: PairBatch, tabs: PairHMMTables,
             f("hap_init").data_ptr(), f("pair_read").data_ptr(),
             f("pair_hap").data_ptr(), tabs.mp.data_ptr(), tabs.nmp.data_ptr(),
             tabs.m2m.data_ptr(), tabs.m2i.data_ptr(), float(I2M), float(I2I),
-            acc.data_ptr(), batch.n_pairs, threads, rows, stream)
+            acc.data_ptr(), batch.n_pairs, threads,
+            batch.max_hap_len if path == "stripe" else rows, stream)
     if err != 0:
         raise RuntimeError(f"PairHMM {path} kernel launch failed: "
                            + lib.lib.pairhmm_error_string(err).decode())

@@ -17,6 +17,7 @@ import torch
 import samgen
 from chip_smoke import realign_soft_clips
 from elprep_tpu import cli as jax_cli
+from elprep_tpu.ops import pairhmm as jax_pairhmm
 from elprep_tpu_torch import cli
 from elprep_tpu_torch.io import sam as samio
 from elprep_tpu_torch.ops import dispatch
@@ -25,6 +26,17 @@ torch.set_num_threads(1)
 
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
 CONTIGS = [("chr1", 12_000), ("chr2", 8_000)]
+
+
+@pytest.fixture(autouse=True)
+def _restore_jax_pairhmm_state(monkeypatch):
+    """The JAX CLI keeps its PairHMM mesh and session backend in module
+    state: ``--sharded`` sets an 8-device mesh that only its next
+    non-sharded run clears, and the first HaplotypeCaller dispatch commits
+    the backend. Each test gets fresh state, and the state before it comes
+    back after it, so no later test on the same worker sees this one's."""
+    monkeypatch.setattr(jax_pairhmm, "_MESH", [None])
+    monkeypatch.setattr(jax_pairhmm, "_SESSION_BACKEND", [None])
 
 
 @pytest.fixture

@@ -153,26 +153,134 @@ def test_warp_kernel_padding_invariance(cuda):
 
 @pytest.mark.cuda
 def test_forced_paths_agree(cuda):
-    """The same batch through the warp path, the CTA path and the plain
-    version: bit for bit, each launch counted on its own path."""
+    """The same batch through the warp path, the stripe path, the CTA path
+    and the plain version: bit for bit, each launch counted on its own
+    path."""
     reads, haps, pair_r, pair_h = _case(12, [3, 64, 100, 151, 200, 256],
                                         [1, 80, 250, 600], hap_n_frac=0.01)
     batch = pc.pack_pairs(reads, haps, pair_r, pair_h)
     n0, by0 = _launches()
     warp, plain = _forward_both(batch, cuda, "warp")
+    stripe, _ = _forward_both(batch, cuda, "stripe")
     cta, _ = _forward_both(batch, cuda, "cta")
-    assert pc.LAUNCHES == n0 + 2
-    assert pc.LAUNCHES_BY_PATH == {"warp": by0["warp"] + 1, "cta": by0["cta"] + 1}
+    assert pc.LAUNCHES == n0 + 3
+    assert pc.LAUNCHES_BY_PATH == {"warp": by0["warp"] + 1, "stripe": by0["stripe"] + 1,
+                                   "cta": by0["cta"] + 1}
     assert torch.equal(warp, plain)
+    assert torch.equal(stripe, plain)
     assert torch.equal(cta, plain)
+
+
+# longest reads of the stripe path: a first stripe of each size class, the
+# edges of a stripe, and several stripes below the first
+_STRIPE_LONGEST = [257, 288, 300, 450, 512, 513, 769, 1500, 4096]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("longest", _STRIPE_LONGEST)
+def test_stripe_kernel_equals_plain(cuda, longest):
+    """Ragged long batches (reads of 1 base up to ``longest``, haplotypes of
+    1 to 2400 bases, 'N' on both sides) on the plan's stripe path: one
+    launch, bit for bit the plain version, on the CPU too up to 700 bases;
+    the CTA path forced on the same batch agrees."""
+    reads, haps, pair_r, pair_h = _case(
+        2000 + longest, sorted({1, 40, 256, 257, (longest + 257) // 2, longest}),
+        [1, 300, 1100, 2400], n_frac=0.02, hap_n_frac=0.01)
+    batch = pc.pack_pairs(reads, haps, pair_r, pair_h)
+    assert pc.launch_plan(batch.max_read_len)[0] == "stripe"
+    n0, by0 = _launches()
+    got, plain = _forward_both(batch, cuda)
+    assert pc.LAUNCHES == n0 + 1
+    assert pc.LAUNCHES_BY_PATH == {**by0, "stripe": by0["stripe"] + 1}
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, plain)
+    cta, _ = _forward_both(batch, cuda, "cta")
+    assert torch.equal(cta, plain)
+    if longest <= 700:
+        assert torch.equal(got.cpu(), pc.pairhmm_forward_plain(batch, pc.default_tables("cpu")))
+
+
+@pytest.mark.cuda
+def test_stripe_kernel_mixed_batch(cuda):
+    """A pooled-size batch of short reads (100-151 bases) with one in ten
+    long (257-300): the stripe path equals the plain version, and every
+    short pair's value equals the warp path's on the short pairs alone."""
+    rng = np.random.RandomState(41)
+    lens = np.where(rng.rand(60) < 0.1, rng.randint(257, 301, 60), rng.randint(100, 152, 60))
+    lens[0] = 300
+    reads, haps, pair_r, pair_h = _case(41, lens.tolist(), [250, 320, 480, 600])
+    batch = pc.pack_pairs(reads, haps, pair_r, pair_h)
+    got, plain = _forward_both(batch, cuda)
+    assert pc.launch_plan(batch.max_read_len)[0] == "stripe"
+    assert torch.equal(got, plain)
+    short = np.flatnonzero(lens[pair_r] <= 256)
+    warp, _ = _forward_both(pc.pack_pairs(reads, haps, pair_r[short], pair_h[short]),
+                            cuda, "warp")
+    assert torch.equal(warp, got[torch.as_tensor(short, device=cuda)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_pairs", [1, 2, 3, 5, 7, 9])
+def test_stripe_kernel_ragged_grid(cuda, n_pairs):
+    """Pair counts that are not a multiple of the warps per CTA, on
+    the stripe path: every pair is written, none twice."""
+    reads, haps, pair_r, pair_h = _case(300 + n_pairs, [30, 300, 700], [90, 650, 333])
+    idx = np.arange(n_pairs) % len(pair_r)
+    batch = pc.pack_pairs(reads, haps, pair_r[idx], pair_h[idx])
+    got, plain = _forward_both(batch, cuda, "stripe")
+    assert torch.equal(got, plain)
+
+
+@pytest.mark.cuda
+def test_stripe_kernel_padding_invariance(cuda):
+    """A pair's value is the same alone (on the warp path when its read is
+    short, one or two stripes when long) and beside a 1500-base read
+    against a 2400-base haplotype (fewer warps per CTA, more stripes)."""
+    reads, haps, pair_r, pair_h = _case(9, [5, 151, 256, 257, 300, 600, 1500],
+                                        [60, 400, 2400])
+    tabs = pc.default_tables(cuda)
+    whole = pc.pairhmm_forward(pc.pack_pairs(reads, haps, pair_r, pair_h).to(cuda), tabs)
+    for b in range(len(pair_r)):
+        one = pc.pack_pairs(reads, haps, pair_r[b : b + 1], pair_h[b : b + 1])
+        alone = pc.pairhmm_forward(one.to(cuda), tabs)
+        assert alone[0].item() == whole[b].item(), b
+
+
+@pytest.mark.cuda
+def test_stripe_path_rejects_haplotypes_beyond_shared_memory(cuda):
+    """A haplotype whose boundary row and bases do not fit one warp's share
+    of a block raises before any launch; the library refuses the same
+    launch on its own; nothing falls back."""
+    reads, haps, pair_r, pair_h = _case(6, [300], [20000])
+    batch = pc.pack_pairs(reads, haps, pair_r, pair_h).to(cuda)
+    tabs = pc.default_tables(cuda)
+    n0, by0 = _launches()
+    with pytest.raises(ValueError, match="shared memory"):
+        pc.pairhmm_forward(batch, tabs)
+    assert _launches() == (n0, by0)
+    lib = pc.library()
+    f = batch.field
+    acc = torch.full((batch.n_pairs,), -1.0, device=cuda)
+    err = lib.entry["stripe"](
+        *(f(k).data_ptr() for k, _ in pc._FIELDS), tabs.mp.data_ptr(), tabs.nmp.data_ptr(),
+        tabs.m2m.data_ptr(), tabs.m2i.data_ptr(), float(pc.I2M), float(pc.I2I),
+        acc.data_ptr(), batch.n_pairs, 32, batch.max_hap_len,
+        torch.cuda.current_stream(cuda).cuda_stream)
+    assert err != 0
+    torch.cuda.synchronize()
+    assert bool((acc == -1.0).all())  # nothing ran
+    # a haplotype that fits runs on fewer warps per CTA
+    reads, haps, pair_r, pair_h = _case(6, [300, 700], [6000, 100])
+    got, plain = _forward_both(pc.pack_pairs(reads, haps, pair_r, pair_h), cuda)
+    assert torch.equal(got, plain)
 
 
 @pytest.mark.cuda
 def test_launch_counts_per_path(cuda):
-    """The plan's path takes the launch: warp up to 256 bases, CTA above;
-    an empty batch launches nothing."""
+    """The plan's path takes the launch: warp up to 256 bases, stripe
+    above; an empty batch launches nothing."""
     tabs = pc.default_tables(cuda)
-    for longest, path in ((256, "warp"), (257, "cta")):
+    for longest, path in ((256, "warp"), (257, "stripe"), (4096, "stripe")):
         reads, haps, pair_r, pair_h = _case(longest, [10, longest], [100])
         batch = pc.pack_pairs(reads, haps, pair_r, pair_h).to(cuda)
         n0, by0 = _launches()

@@ -23,6 +23,7 @@ import samgen
 import test_crossmode as jcm
 import test_multihost as jmh
 from elprep_tpu import cli as jax_cli
+from elprep_tpu.ops import pairhmm as jax_pairhmm
 from elprep_tpu.parallel.multihost import hc_contig_partition as jhc_contig_partition
 from elprep_tpu_torch import cli
 from elprep_tpu_torch.parallel import mesh as pmesh
@@ -32,6 +33,17 @@ torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TIMEOUT_S = 180
+
+
+@pytest.fixture(autouse=True)
+def _restore_jax_pairhmm_state(monkeypatch):
+    """The JAX CLI keeps its PairHMM mesh and session backend in module
+    state: ``--sharded`` sets an 8-device mesh that only its next
+    non-sharded run clears, and the first HaplotypeCaller dispatch commits
+    the backend. Each test gets fresh state, and the state before it comes
+    back after it, so no later test on the same worker sees this one's."""
+    monkeypatch.setattr(jax_pairhmm, "_MESH", [None])
+    monkeypatch.setattr(jax_pairhmm, "_SESSION_BACKEND", [None])
 
 
 @pytest.fixture

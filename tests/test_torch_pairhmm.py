@@ -66,6 +66,30 @@ def _n_heavy_case(seed=21, n_reads=6, n_haps=4):
     return reads, haps, pair_r, pair_h
 
 
+def _long_case(seed=31):
+    """Reads of 257, 300 and 600 bases cut from one of two haplotypes of
+    620-700 bases (the second has two SNPs and a 3-base deletion), with a
+    few errors and 'N' bases, every read against both: the stripe path's
+    reads, all kept from f32 (none rescued in f64)."""
+    rng = np.random.RandomState(seed)
+    h0 = rng.choice(_BASES, rng.randint(620, 700))
+    h1 = np.delete(h0.copy(), range(200, 203))
+    for p in (90, 410):
+        h1[p] = _BASES[(list(_BASES).index(h1[p]) + 1) % 4]
+    haps = [h0.tobytes(), h1.tobytes()]
+    reads = []
+    for k, lr in enumerate([257, 300, 600]):
+        src = np.frombuffer(haps[k % 2], np.uint8)
+        st = rng.randint(0, len(src) - lr + 1)
+        seq = src[st : st + lr].copy()
+        seq[rng.choice(lr, 2, replace=False)] = ord("N")
+        seq[rng.randint(lr)] = rng.choice(_BASES)
+        reads.append((seq.tobytes(), rng.randint(20, 41, lr).astype(np.uint8), 60))
+    pair_r = np.repeat(np.arange(len(reads)), len(haps))
+    pair_h = np.tile(np.arange(len(haps)), len(reads))
+    return reads, haps, pair_r, pair_h
+
+
 _CASES = {"mixed": _mixed_case, "n_heavy": _n_heavy_case}
 
 
@@ -112,6 +136,23 @@ def test_logl_pairs_matches_jax_pallas_interpret():
     got = pairhmm.pairhmm_logl_pairs(reads, haps, pair_r, pair_h, device="cpu")
     want = jax_pallas.pairhmm_pallas_pairs(reads, haps, pair_r, pair_h)
     assert np.all(np.abs(got - want) < 1e-5), np.abs(got - want).max()
+
+
+@pytest.mark.parametrize("jax_path", ["scan", "pallas_interpret"])
+def test_long_reads_plain_matches_jax(jax_path):
+    """Reads of 257-600 bases (the stripe path's): the plain version, the
+    kernels' reference on the CPU, against JAX's lax.scan
+    (``_pairhmm_f32_scan``) and the Pallas kernel in interpret mode, within
+    1e-5 log10 as for short reads, and within 5e-4 of the f64 oracle. No
+    pair here is rescued in f64, so the f32 values themselves are held."""
+    reads, haps, pair_r, pair_h = _long_case()
+    got = _plain_log10(reads, haps, pair_r, pair_h)
+    assert np.all(got >= pc.F32_RESCUE_LOG10)
+    want = (jax_pairhmm._pairhmm_logl_pairs_scan if jax_path == "scan"
+            else jax_pallas.pairhmm_pallas_pairs)(reads, haps, pair_r, pair_h)
+    assert np.all(np.abs(got - want) < 1e-5), np.abs(got - want).max()
+    exact = _f64(reads, haps, pair_r, pair_h)
+    assert np.all(np.abs(got - exact) < 5e-4), np.abs(got - exact).max()
 
 
 @pytest.mark.parametrize("case", sorted(_CASES))
@@ -178,31 +219,89 @@ def test_pack_pairs_layout():
 
 def test_launch_shape():
     """launch_plan: the warp path up to 256 bases (every rows-per-lane
-    count 1..8), the CTA path above, the same limits as before."""
+    count 1..8), the stripe path above, the same limits as before."""
     w = 32 * pc.WARPS_PER_CTA
+    s = 32 * pc.STRIPE_WARPS_PER_CTA
     assert pc.launch_plan(1) == ("warp", w, 1)
     assert pc.launch_plan(100) == ("warp", w, 4)
     assert pc.launch_plan(151) == ("warp", w, 5)
     assert pc.launch_plan(256) == ("warp", w, 8)
-    assert pc.launch_plan(257) == ("cta", 160, 2)
-    assert pc.launch_plan(600) == ("cta", 160, 4)
-    assert pc.launch_plan(pc.MAX_READ_LEN) == ("cta", 256, 64)
+    assert pc.launch_plan(257) == ("stripe", s, 8)
+    assert pc.launch_plan(600) == ("stripe", s, 8)
+    assert pc.launch_plan(pc.MAX_READ_LEN) == ("stripe", s, 8)
     assert {pc.launch_plan(lr)[2] for lr in range(1, 257)} == set(range(1, 9))
     for lr in range(1, 3000, 37):
         path, t, r = pc.launch_plan(lr)
         assert t % 32 == 0 and t <= pc.MAX_THREADS
-        assert (32 * r >= lr) if path == "warp" else (t * r >= lr)
-        assert path == ("warp" if lr <= pc.WARP_MAX_READ_LEN else "cta")
+        assert (32 * r >= lr) if path == "warp" else 32 * sum(pc.stripe_rows(lr)) >= lr
+        assert path == ("warp" if lr <= pc.WARP_MAX_READ_LEN else "stripe")
     with pytest.raises(ValueError):
         pc.launch_plan(pc.MAX_READ_LEN + 1)
 
 
+_ROUTED_LENGTHS = [1, 31, 32, 33, 151, 255, 256, 257, 288, 289, 300, 450, 511, 512,
+                   513, 600, 767, 768, 769, 1500, 4096, 4097, 8192, 12000, 16383, 16384]
+
+
+@pytest.mark.parametrize("lr", _ROUTED_LENGTHS)
+def test_launch_plan_routes_by_read_length(lr):
+    """Reads of up to 256 bases go to the warp path, longer ones to the
+    stripe path. The stripes: the first takes ceil(lr0 / 32) rows per lane
+    for its lr0 = lr - 256 * n rows (1..256), each of the n below it 8 rows
+    per lane (256 rows), so a read sweeps the fewest rows 32 rows per lane
+    can give it; a read of up to 256 bases is one stripe of the warp
+    path's rows."""
+    path, threads, rows = pc.launch_plan(lr)
+    assert path == ("warp" if lr <= 256 else "stripe")
+    stripes = pc.stripe_rows(lr)
+    n_full = max(0, (lr - 1) // 256)
+    lr0 = lr - 256 * n_full
+    assert stripes == (max(1, -(-lr0 // 32)),) + (8,) * n_full
+    assert 1 <= lr0 <= 256 and 32 * sum(stripes) >= lr
+    assert 32 * sum(stripes) - lr < 32  # no stripe sweeps a lane's worth of spare rows
+    if path == "warp":
+        assert stripes == (rows,) and threads == 32 * pc.WARPS_PER_CTA
+    else:
+        assert rows == pc.STRIPE_ROWS and threads == 32 * pc.STRIPE_WARPS_PER_CTA
+    assert pc.launch_plan(lr, "stripe")[0] == "stripe"
+
+
+def test_launch_plan_stripe_warps_by_haplotype_length():
+    """Warps per CTA on the stripe path: 4 while four warps' shared memory
+    (boundary row and haplotype bases) fits a block, fewer for longer
+    haplotypes, and a clear error when one warp's does not."""
+    limit = pc.SMEM_PER_BLOCK_H100
+    assert pc.stripe_smem_bytes(650) == 12 * 652 + 672
+    assert pc.launch_plan(450, None, 650, limit) == ("stripe", 128, 8)
+    assert pc.launch_plan(1500, None, 2400, limit) == ("stripe", 128, 8)
+    assert pc.launch_plan(1500, None, 5000, limit) == ("stripe", 96, 8)
+    assert pc.launch_plan(1500, None, 6000, limit) == ("stripe", 64, 8)
+    assert pc.launch_plan(4000, None, 16384, limit) == ("stripe", 32, 8)
+    for lh in range(0, 18000, 97):
+        try:
+            _, t, _ = pc.launch_plan(300, None, lh, limit)
+        except ValueError:
+            assert pc.stripe_smem_bytes(lh) > limit
+            continue
+        assert (t // 32) * pc.stripe_smem_bytes(lh) <= limit
+        assert t == 128 or (t // 32 + 1) * pc.stripe_smem_bytes(lh) > limit
+    with pytest.raises(ValueError, match="shared memory"):
+        pc.launch_plan(300, None, 20000, limit)
+    with pytest.raises(ValueError, match="shared memory"):
+        pc.launch_plan(300, "stripe", 700, 1000)
+
+
 def test_launch_plan_forced_path():
-    """A forced path: the CTA kernel takes any read, the warp kernel none
-    over 256 bases; for short reads the CTA path keeps its own shapes."""
+    """A forced path: the CTA and stripe kernels take any read, the warp
+    kernel none over 256 bases; for short reads the CTA path keeps its own
+    shapes."""
     assert pc.launch_plan(1, "cta") == ("cta", 32, 1)
     assert pc.launch_plan(151, "cta") == ("cta", 160, 1)
     assert pc.launch_plan(256, "cta") == ("cta", 256, 1)
+    assert pc.launch_plan(257, "cta") == ("cta", 160, 2)
+    assert pc.launch_plan(600, "cta") == ("cta", 160, 4)
+    assert pc.launch_plan(pc.MAX_READ_LEN, "cta") == ("cta", 256, 64)
+    assert pc.launch_plan(151, "stripe") == ("stripe", 32 * pc.STRIPE_WARPS_PER_CTA, 8)
     assert pc.launch_plan(151, "warp") == ("warp", 32 * pc.WARPS_PER_CTA, 5)
     with pytest.raises(ValueError):
         pc.launch_plan(257, "warp")
@@ -210,7 +309,7 @@ def test_launch_plan_forced_path():
         pc.launch_plan(100, "tile")
 
 
-@pytest.mark.parametrize("path", ["warp", "cta"])
+@pytest.mark.parametrize("path", ["warp", "stripe", "cta"])
 def test_forced_path_on_cpu_is_plain(path):
     """On the CPU the forced entry runs the plain version and counts no
     launch; a batch the forced path cannot take raises."""

@@ -19,6 +19,7 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 import samgen
 import test_sharded as jts
 from elprep_tpu import cli as jax_cli
+from elprep_tpu.ops import pairhmm as jax_pairhmm
 from elprep_tpu.filters import add_refid as jadd_refid
 from elprep_tpu.filters import bqsr as jfb
 from elprep_tpu.io import sam as jsamio
@@ -42,6 +43,17 @@ from elprep_tpu_torch.parallel import sharded
 torch.set_num_threads(1)
 
 CPU8 = (torch.device("cpu"),) * 8
+
+
+@pytest.fixture(autouse=True)
+def _restore_jax_pairhmm_state(monkeypatch):
+    """The JAX CLI keeps its PairHMM mesh and session backend in module
+    state: ``--sharded`` sets an 8-device mesh that only its next
+    non-sharded run clears, and the first HaplotypeCaller dispatch commits
+    the backend. Each test gets fresh state, and the state before it comes
+    back after it, so no later test on the same worker sees this one's."""
+    monkeypatch.setattr(jax_pairhmm, "_MESH", [None])
+    monkeypatch.setattr(jax_pairhmm, "_SESSION_BACKEND", [None])
 
 
 @pytest.fixture
