@@ -21,7 +21,10 @@ Phases, each of which must pass:
    plan picks for the last three, and the CTA path forced. Each path bit
    for bit the plain PyTorch version on the card, the plan's path within
    5e-4 log10 of the f64 oracle on 64 sampled pairs, each path's time in
-   turns in this run, the plain version's time and the bound;
+   turns in this run, the plain version's time and the bound; then
+   bench.py's GCUPS batch ("bench_wes": 16 384 pairs of 152-base reads
+   against 400-base haplotypes) on the warp path, checked the same way,
+   with its time, GCUPS and bound;
 3. golden: the port's CLI on cuda reproduces the duplicate-marking,
    metrics, BQSR and HaplotypeCaller goldens of tests/fixtures byte for
    byte (the HaplotypeCaller on the worker pool, started before this
@@ -70,10 +73,20 @@ Phases, each of which must pass:
    the stretches, pooled == serial byte for byte;
 9. slice: the earlier ``filter --sorting-order coordinate
    --haplotypecaller --reference-confidence GVCF`` on 30 000 reads, its
-   launches again all on the warp path.
+   launches again all on the warp path;
+10. graft entry: the graft entry points (elprep_tpu_torch.graft_entry).
+   ``fused_device_step`` on bench.py's columns (131 072 reads x 128 over a
+   2^20-base reference, on the card before timing) as one CUDA graph:
+   equal to its eager plain version on the card and on the CPU, the
+   packed step equal to it; the graph's and the plain version's times in
+   turns, launches per call under torch.profiler, the bytes bound and the
+   host-to-device bytes of the dense and packed argument lists;
+   ``entry()`` on the card equal to the CPU; ``dryrun_multichip(4)`` on
+   four cuda:0 entries (its gloo multi-process part on the CPU), every
+   PairHMM launch on the warp path.
 
 Prints the card (nvidia-smi name and power limit), one JSON line with
-the device programs' numbers (the sharded ones' launches from the
+the graft-entry phase's numbers, one with the device programs' numbers (the sharded ones' launches from the
 in-process ``--sharded`` run), one with the kernels' numbers (the warp
 path's launches from the cold pooled 5-step run, the warm, serial, sfm
 and sharded runs' beside them; the stripe path's from the pooled 2x300
@@ -477,6 +490,103 @@ def _time_batch(name: str, pairs: tuple, paths: tuple, plan_path: str, reps: int
     return out
 
 
+# bench.py's PairHMM GCUPS batch (bench.py:255-282): 16 384 pairs, one read
+# of 152 bases against one haplotype of 400 each, ACGT from seed 1,
+# modified qualities 35, tandem-repeat lengths 1
+WES_PAIRS, WES_READ_LEN, WES_HAP_LEN = 16384, 152, 400
+
+
+def make_wes_batch(n_pairs: int = WES_PAIRS, lr: int = WES_READ_LEN,
+                   lh: int = WES_HAP_LEN, seed: int = 1, error_rate: float = 0.02):
+    """bench.py's GCUPS batch as a PairBatch on the host, packed field by
+    field (the qualities and repeat lengths are given, not derived). Each
+    read is cut from its haplotype with ``error_rate`` random base changes:
+    bench.py draws reads independent of the haplotypes, whose likelihoods
+    (log10 about -300 and below) underflow f32 to 0 under the 2^100
+    scaling, so no value could be held to the f64 oracle; the work per cell
+    is the same. Returns (batch, reads, haps) for the oracle."""
+    import numpy as np
+
+    from elprep_tpu_torch.ops import pairhmm_cuda as pc
+
+    rng = np.random.RandomState(seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    hb = rng.choice(acgt, (n_pairs, lh))
+    rb = np.stack([hb[i, st : st + lr]
+                   for i, st in enumerate(rng.randint(0, lh - lr + 1, n_pairs))])
+    err = rng.rand(n_pairs, lr) < error_rate
+    rb[err] = rng.choice(acgt, int(err.sum()))
+    idx = np.arange(n_pairs, dtype=np.int32)
+    batch = pc.PairBatch.from_arrays({
+        "read_bases": rb.reshape(-1), "read_quals": np.full(n_pairs * lr, 35, np.uint8),
+        "read_repeats": np.ones(n_pairs * lr, np.uint8),
+        "read_offsets": idx * lr, "read_lengths": np.full(n_pairs, lr, np.int32),
+        "hap_bases": hb.reshape(-1), "hap_offsets": idx * lh,
+        "hap_lengths": np.full(n_pairs, lh, np.int32),
+        "hap_init": np.full(n_pairs, 2.0 ** pc.F32_INITIAL_POW / lh).astype(np.float32),
+        "pair_read": idx, "pair_hap": idx})
+    reads = [(r.tobytes(), np.full(lr, 35, np.uint8), 60) for r in rb]
+    return batch, reads, [h.tobytes() for h in hb]
+
+
+@contextlib.contextmanager
+def _repeat_lengths_one():
+    """The f64 oracle with every tandem-repeat length 1, as the WES batch
+    gives the kernel (the oracle otherwise derives them from the bases)."""
+    import numpy as np
+
+    from elprep_tpu_torch.hc import tables
+    from elprep_tpu_torch.ops import pairhmm as ph
+
+    orig = ph.match_probs_for_read
+    ph.match_probs_for_read = lambda bases: (
+        np.full(len(bases), tables.MATCH_TO_MATCH[1]),
+        np.full(len(bases), tables.MATCH_TO_INDEL[1]))
+    try:
+        yield
+    finally:
+        ph.match_probs_for_read = orig
+
+
+def wes_batch(reps: int, n_sample: int, seed: int, plain_reps: int = 3) -> dict:
+    """bench.py's GCUPS batch on the plan's path (warp), bit for bit the
+    plain version, sampled pairs within 5e-4 log10 of the f64 oracle; its
+    time (CUDA events, median of ``reps``), GCUPS, the plain version's
+    time and the bound."""
+    import numpy as np
+
+    from elprep_tpu_torch.ops import pairhmm_cuda as pc
+
+    host, reads, haps = make_wes_batch()
+    batch = host.to("cuda")
+    tabs = pc.default_tables("cuda")
+    plan = pc.launch_plan(batch.max_read_len, None, batch.max_hap_len)
+    if plan[0] != "warp":
+        raise AssertionError(f"bench_wes: planned on {plan}, not warp")
+    got = pc.pairhmm_forward(batch, tabs)
+    err = _check_equal("warp kernel %s, bench_wes" % (plan,), got,
+                       pc.pairhmm_forward_plain(batch, tabs))
+    idx = np.arange(batch.n_pairs)
+    with _repeat_lengths_one():
+        oracle = _oracle_check("warp kernel, bench_wes", got, reads, haps, idx, idx,
+                               n_sample, seed)
+    cells = batch.n_pairs * WES_READ_LEN * WES_HAP_LEN
+    ops_ms, bytes_ms = _bound_ms(batch, cells)
+    ms = _median_ms(lambda: pc.pairhmm_forward(batch, tabs), reps)
+    plain_ms = _median_ms(lambda: pc.pairhmm_forward_plain(batch, tabs), plain_reps)
+    out = {"pairs": batch.n_pairs, "cells": cells, "read_len": WES_READ_LEN,
+           "hap_len": WES_HAP_LEN, "path": "warp", "plan": list(plan), "ms": ms,
+           "gcups": cells / ms / 1e6, "bound_ms": max(ops_ms, bytes_ms),
+           "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+           "plain_ms": plain_ms, "max_abs_err": err, "oracle_max_log10": oracle}
+    _log("pairhmm warp on bench_wes: %d pairs of %d x %d, %d cells: %.4f ms median of "
+         "%d (%.2f GCUPS); bound %.4f ms (operations; bytes %.6f ms), %.1fx off it; "
+         "plain version %.2f ms" % (batch.n_pairs, WES_READ_LEN, WES_HAP_LEN, cells, ms,
+                                    reps, out["gcups"], ops_ms, bytes_ms,
+                                    ms / out["bound_ms"], plain_ms))
+    return out
+
+
 # the kernel phase's batches: (name, pairs, forced paths timed in turns,
 # the plan's path)
 def _kernel_batches(n_pairs: int) -> list:
@@ -498,8 +608,9 @@ def kernel_phase(n_pairs: int = KERNEL_PAIRS, reps: int = 20, n_sample: int = 64
     haplotypes 300-650 bp), of short reads with one pair in ten long
     ("mixed"), and 256 pairs of reads of 300-1500 bp against haplotypes of
     1600-2400 bp ("long_256"); each path bit for bit the plain version, the
-    plan's path against the f64 oracle, the paths timed in turns. Returns
-    the kernels line's entries: the warp path on the short batch, the
+    plan's path against the f64 oracle, the paths timed in turns; then
+    bench.py's GCUPS batch (wes_batch). Returns the kernels line's
+    entries: the warp path on the short batch (with "bench_wes"), the
     stripe path on "long_hc", each with its batches."""
     batches = {}
     for k, (name, make, paths, plan_path) in enumerate(_kernel_batches(n_pairs)):
@@ -508,10 +619,13 @@ def kernel_phase(n_pairs: int = KERNEL_PAIRS, reps: int = 20, n_sample: int = 64
     common = {"route": "cuda", "source": "elprep_tpu_torch/csrc/pairhmm.cu",
               "replaces": "elprep_tpu/ops/pairhmm_pallas.py:39", "library_ms": None}
     short, long_hc = batches["short"], batches["long_hc"]
+    wes = wes_batch(reps, n_sample, seed=6 + len(batches))
     warp = dict(common, name="pairhmm_forward", ms=short["paths"]["warp"]["ms"],
-                max_abs_err=short["max_abs_err"], plain_ms=short["plain_ms"],
+                max_abs_err=max(short["max_abs_err"], wes["max_abs_err"]),
+                plain_ms=short["plain_ms"],
                 bound_ms=short["bound_ms"], bound_by=short["bound_by"],
-                cells=short["cells"], pairs=short["pairs"], paths=short["paths"])
+                cells=short["cells"], pairs=short["pairs"], paths=short["paths"],
+                bench_wes=wes)
     stripe = dict(common, name="pairhmm_forward_stripe",
                   ms=long_hc["paths"]["stripe"]["ms"],
                   max_abs_err=max(b["max_abs_err"] for b in batches.values()),
@@ -1845,6 +1959,176 @@ def dispatch_ab_phase(workdir: str, fx: dict, elfasta: str, rounds: int) -> dict
 
 
 # ---------------------------------------------------------------------------
+# Phase 10: the graft entry points (graft_entry)
+# ---------------------------------------------------------------------------
+
+# bench.py's device step: 131 072 reads x 128 over a 2^20-base reference
+GRAFT_READS = 1 << 17
+DRYRUN_MESH_ENTRIES = 4
+# runtime calls that enqueue work on the card
+_HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                      "cuLaunchKernelEx", "cudaMemcpyAsync", "cudaMemsetAsync",
+                      "cudaGraphLaunch")
+
+
+def _launch_counts(fn) -> dict:
+    """One warm call of ``fn`` under torch.profiler: the runtime calls
+    that enqueue work on the card (kernel launches, copies, sets, graph
+    launches), by name, and the operations the card ran."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    host, device = {}, 0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            device += e.count
+        elif e.key in _HOST_LAUNCH_CALLS:
+            host[e.key] = host.get(e.key, 0) + e.count
+    return {"host_calls": sum(host.values()), "by_call": host, "device_ops": device}
+
+
+class _Timed:
+    """Adds the wall seconds of every call of ``mod.attr`` in a block to
+    ``into[attr]``."""
+
+    def __init__(self, mod, attr, into: dict):
+        self.mod, self.attr, self.orig, self.into = mod, attr, getattr(mod, attr), into
+
+    def __enter__(self):
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return self.orig(*a, **k)
+            finally:
+                self.into[self.attr] = (self.into.get(self.attr, 0.0)
+                                        + time.perf_counter() - t0)
+
+        setattr(self.mod, self.attr, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.attr, self.orig)
+        return False
+
+
+def _same_tensors(what: str, got, want) -> None:
+    import torch
+
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} outputs, not {len(want)}")
+    for k, (g, w) in enumerate(zip(got, want)):
+        if g.dtype != w.dtype or g.shape != w.shape or not torch.equal(g.cpu(), w.cpu()):
+            raise AssertionError(f"{what}: output {k} differs")
+
+
+def _nbytes_t(tensors) -> int:
+    return int(sum(t.numel() * t.element_size() for t in tensors))
+
+
+def graft_entry_phase(card: str, reps: int = 20) -> dict:
+    """The port's graft entry points (elprep_tpu_torch.graft_entry) on the
+    card. ``fused_device_step`` on bench.py's columns (GRAFT_READS reads x
+    128 over a 2^20-base reference, put on the card first): its graph
+    replay equal to the eager plain version on the card and to the eager
+    run on the CPU, the packed step equal to it; the replay's and the
+    plain version's CUDA-event times in turns, the launches of each under
+    torch.profiler, the bytes bound and the host-to-device bytes of both
+    argument lists. ``entry()`` on the card equal to ``entry`` on CPU
+    copies. ``dryrun_multichip(DRYRUN_MESH_ENTRIES)`` on that many
+    entries of cuda:0, every PairHMM launch on the warp path (the gloo
+    multi-process part runs on the CPU)."""
+    import torch
+
+    from elprep_tpu_torch import graft_entry as ge
+
+    cols = ge.fused_step_columns(GRAFT_READS)
+    pcols = ge.pack_step_columns(cols)
+    dargs = _to_cuda(*cols)
+    pargs = _to_cuda(*pcols)
+    step = ge.fused_device_step()
+    eager = ge.fused_device_step_eager()
+    t0 = time.perf_counter()
+    got = step(*dargs)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    if len(step.graphs) != 1:
+        raise AssertionError(f"fused_device_step holds {len(step.graphs)} graphs")
+    plain = eager(*dargs)
+    _same_tensors("fused_device_step graph vs eager on the card", got, plain)
+    t0 = time.perf_counter()
+    on_cpu = ge.fused_device_step_eager(device="cpu")(*cols)
+    cpu_s = time.perf_counter() - t0
+    _same_tensors("fused_device_step graph vs eager on the CPU", got, on_cpu)
+    pstep = ge.fused_device_step_packed(width=cols[0].shape[1])
+    _same_tensors("fused_device_step_packed vs dense", pstep(*pargs), got)
+    if not torch.equal(torch.sort(got[0]).values, torch.arange(GRAFT_READS, device="cuda")):
+        raise AssertionError("fused_device_step: the sort permutation is not one")
+
+    times = _median_ms_turns({"graph": lambda: step(*dargs), "eager": lambda: eager(*dargs),
+                              "packed": lambda: pstep(*pargs)}, reps)
+    graph, _, _ = next(iter(step.graphs.values()))
+    replay_ms = _median_ms(graph.replay, reps)
+    launches = {"eager": _launch_counts(lambda: eager(*dargs)),
+                "graph": _launch_counts(lambda: step(*dargs)),
+                "replay": _launch_counts(graph.replay)}
+    in_dense, in_packed = _nbytes(*cols), _nbytes(*pcols)
+    out_bytes = _nbytes_t(got)
+    res = {"rows": GRAFT_READS, "width": int(cols[0].shape[1]),
+           "ms": times["graph"], "replay_ms": replay_ms, "eager_ms": times["eager"],
+           "packed_ms": times["packed"], "reads_per_s": GRAFT_READS / times["graph"] * 1e3,
+           "eager_over_graph": times["eager"] / times["graph"],
+           "launches": launches, "h2d_bytes": in_dense, "h2d_bytes_packed": in_packed,
+           "bound_ms": (in_dense + out_bytes) / PEAK_BYTES_PER_S * 1e3,
+           "bound_ms_packed": (in_packed + out_bytes) / PEAK_BYTES_PER_S * 1e3,
+           "bound_by": "bytes", "first_call_s": capture_s, "cpu_eager_s": cpu_s}
+    _log("fused_device_step: %d reads x %d; graph replay == eager on the card == eager "
+         "on the CPU (%.2f s there), packed == dense; first call (warm-up + capture) "
+         "%.2f s; per call %.4f ms (%.0f reads/s; the replay alone %.4f ms), eager "
+         "%.4f ms (%.2fx), packed %.4f ms, median of %d in turns; launches: eager %s, "
+         "a call %s, a replay %s; bound %.4f ms (%d + %d bytes), packed %.4f ms; "
+         "H2D bytes dense %d, packed %d"
+         % (GRAFT_READS, res["width"], cpu_s, capture_s, res["ms"], res["reads_per_s"],
+            replay_ms, res["eager_ms"], res["eager_over_graph"], res["packed_ms"], reps,
+            launches["eager"], launches["graph"], launches["replay"], res["bound_ms"],
+            in_dense, out_bytes, res["bound_ms_packed"], in_dense, in_packed))
+
+    fn, args = ge.entry()
+    cfn, _ = ge.entry("cpu")
+    eout = fn(*args)
+    _same_tensors("entry() on the card vs the CPU", eout, cfn(*[a.cpu() for a in args]))
+    entry = {"ms": _median_ms(lambda: fn(*args), reps), "sync_scalar": ge.sync_scalar(eout),
+             "launches": _launch_counts(lambda: fn(*args))}
+    _log("entry(): 256 reads x 128, card == CPU; %.4f ms per call, launches %s"
+         % (entry["ms"], entry["launches"]))
+
+    parts = {}
+    _zero_pairhmm_counts()
+    with _Timed(ge, "_dryrun_real_reads", parts), _Timed(ge, "dryrun_multihost", parts):
+        t0 = time.perf_counter()
+        ge.dryrun_multichip(DRYRUN_MESH_ENTRIES)
+        dry_s = time.perf_counter() - t0
+    launches_dry, by_path = _pairhmm_counts("dryrun_multichip")
+    if launches_dry < DRYRUN_MESH_ENTRIES:
+        raise AssertionError(f"dryrun_multichip: {launches_dry} PairHMM launches over "
+                             f"{DRYRUN_MESH_ENTRIES} mesh entries")
+    dry = {"mesh": DRYRUN_MESH_ENTRIES, "wall_s": dry_s, "launches": launches_dry,
+           "launches_by_path": by_path, "parts_s": parts}
+    _log("dryrun_multichip(%d) on %d x cuda:0: passed in %.2f s (filter --sharded "
+         "against the whole-file run %.2f s, the two gloo processes on the CPU %.2f s); "
+         "PairHMM launches %d, per path %s"
+         % (DRYRUN_MESH_ENTRIES, DRYRUN_MESH_ENTRIES, dry_s, parts["_dryrun_real_reads"],
+            parts["dryrun_multihost"], launches_dry, json.dumps(by_path)))
+    return {"card": card, "fused_device_step": res, "entry": entry,
+            "dryrun_multichip": dry}
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1921,6 +2205,7 @@ def main() -> int:
         shd = phase("sharded", sharded_phase, workdir, fx, ref["elfasta"], five["pooled"])
         longr = phase("2x300", long_read_phase, workdir, lref, lfx)
         earlier = phase("slice", slice_phase, workdir, ref, slice_sam)
+        graft = phase("graft entry", graft_entry_phase, smi)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     print(json.dumps({"device_ops": [
@@ -1964,6 +2249,8 @@ def main() -> int:
             shd["multihost"]["wall_s"], lpooled["wall_s"], lserial["wall_s"]))
     _log("smoke: %.1f s wall; phases: %s" % (
         time.perf_counter() - t_start, "; ".join("%s %.1f s" % kv for kv in walls.items())))
+    kernel["launches_dryrun"] = graft["dryrun_multichip"]["launches"]
+    print(json.dumps({"graft_entry": graft}), flush=True)
     print(json.dumps({"kernels": [kernel, stripe]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

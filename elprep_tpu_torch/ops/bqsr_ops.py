@@ -75,8 +75,19 @@ def _t(a, dev: torch.device, dtype=torch.int64) -> torch.Tensor:
     return torch.as_tensor(a).to(device=dev, dtype=dtype)
 
 
+# the constant tables above as int64 tensors, per (table, device): each is
+# copied to a device once, so no later call copies from the host (a copy
+# from pageable host memory cannot be captured into a CUDA graph)
+_DEVICE_LUTS: dict = {}
+
+
 def _lut(table: np.ndarray, idx: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(table).to(device=idx.device, dtype=torch.int64)[idx]
+    key = (id(table), idx.device)
+    t = _DEVICE_LUTS.get(key)
+    if t is None:
+        t = _DEVICE_LUTS.setdefault(key, torch.as_tensor(table).to(
+            device=idx.device, dtype=torch.int64))
+    return t[idx]
 
 
 def _cycle_covariates(flag, seq_len, L):

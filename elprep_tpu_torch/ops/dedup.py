@@ -72,7 +72,7 @@ def _segment_ids(*key_cols: torch.Tensor) -> torch.Tensor:
     change = torch.zeros_like(key_cols[0], dtype=torch.bool)
     for k in key_cols:
         change |= k != torch.roll(k, 1)
-    change[0] = True
+    change[:1].fill_(True)  # fill_, not a copy of a host scalar: capturable
     return torch.cumsum(change.to(torch.int64), 0) - 1
 
 
@@ -102,9 +102,11 @@ def mark_duplicates(libid, refid, upos, rev, score, qrank, flag,
     eligible = (flag & ELIGIBLE_EXCLUDE) == 0
     true_pair = eligible & ((flag & (MULTIPLE | NEXT_UNMAPPED)) == MULTIPLE)
     true_frag = eligible & ~true_pair
-    i32_min = torch.tensor(int(INT32_MIN), device=dev)
-    i32_max = torch.tensor(int(INT32_MAX), device=dev)
-    minus1 = torch.tensor(-1, device=dev)
+    # made on the device (torch.tensor would copy from the host: not
+    # capturable into a CUDA graph)
+    i32_min = torch.full((), int(INT32_MIN), dtype=torch.int64, device=dev)
+    i32_max = torch.full((), int(INT32_MAX), dtype=torch.int64, device=dev)
+    minus1 = torch.full((), -1, dtype=torch.int64, device=dev)
 
     # ------------------------------------------------------------------
     # FRAGMENT phase
@@ -188,8 +190,8 @@ def mark_duplicates(libid, refid, upos, rev, score, qrank, flag,
     # both reads of a losing pair; every other row writes the spare slot n
     # (torch has no dropping scatter: an index of n would be out of range)
     sink = torch.full_like(g_ia, n)
-    dup[torch.where(gloser, g_ia, sink)] = True
-    dup[torch.where(gloser, g_ib, sink)] = True
+    dup.index_fill_(0, torch.where(gloser, g_ia, sink), True)
+    dup.index_fill_(0, torch.where(gloser, g_ib, sink), True)
     return dup[:n]
 
 

@@ -646,3 +646,130 @@ def test_world_of_one_nccl_all_reduce_of_int64_tables(cuda):
         assert sharded.COLLECTIVES[n0][1] == 6 * 94 * 8
     finally:
         dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# The graft entry points (graft_entry): the fused step as one CUDA graph
+# ---------------------------------------------------------------------------
+
+
+def _step_cols(n_reads, read_len=128, seed=0):
+    from elprep_tpu_torch import graft_entry as ge
+
+    cols = ge.fused_step_columns(n_reads, read_len, ref_len=1 << 16)
+    if seed:
+        # other quals and positions, same shapes
+        rng = np.random.RandomState(seed)
+        cols[1] = rng.randint(2, 40, cols[1].shape).astype(np.uint8)
+        cols[4] = rng.randint(1, (1 << 16) - read_len - 1, cols[4].shape).astype(np.int32)
+    return cols
+
+
+def _equal_outputs(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g.cpu(), w.cpu())
+
+
+@pytest.mark.cuda
+def test_fused_step_graph_equals_eager(cuda):
+    from elprep_tpu_torch import graft_entry as ge
+
+    cols = _step_cols(4096)
+    dcols = [torch.as_tensor(c).to(cuda) for c in cols]
+    step = ge.fused_device_step(device=cuda)
+    got = step(*dcols)
+    assert len(step.graphs) == 1
+    eager = ge.fused_device_step_eager(device=cuda)(*dcols)
+    torch.cuda.synchronize()
+    assert all(t.device.type == "cuda" for t in got)
+    _equal_outputs(got, eager)
+    _equal_outputs(got, ge.fused_device_step(device="cpu")(*cols))
+    # numpy arguments reach the same graph
+    _equal_outputs(step(*cols), eager)
+    assert len(step.graphs) == 1
+
+
+@pytest.mark.cuda
+def test_fused_step_calls_keep_their_own_outputs(cuda):
+    from elprep_tpu_torch import graft_entry as ge
+
+    a, b = _step_cols(2048), _step_cols(2048, seed=3)
+    step = ge.fused_device_step(device=cuda)
+    out_a = step(*a)
+    out_b = step(*b)
+    out_a2 = step(*a)
+    torch.cuda.synchronize()
+    assert len(step.graphs) == 1
+    eager = ge.fused_device_step_eager(device=cuda)
+    _equal_outputs(out_a, eager(*a))
+    _equal_outputs(out_b, eager(*b))
+    _equal_outputs(out_a2, out_a)
+    assert not torch.equal(out_a[2], out_b[2])
+    ptrs = [t.data_ptr() for t in out_a + out_b + out_a2]
+    assert len(set(ptrs)) == len(ptrs)
+
+
+@pytest.mark.cuda
+def test_fused_step_new_shape_new_graph(cuda):
+    from elprep_tpu_torch import graft_entry as ge
+
+    step = ge.fused_device_step(device=cuda)
+    eager = ge.fused_device_step_eager(device=cuda)
+    for n, (reads, read_len) in enumerate([(1024, 128), (3000, 151), (1024, 128)]):
+        cols = _step_cols(reads, read_len)
+        _equal_outputs(step(*cols), eager(*cols))
+        assert len(step.graphs) == min(n + 1, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("read_len", [96, 151])
+def test_packed_step_graph_equals_dense(cuda, read_len):
+    from elprep_tpu_torch import graft_entry as ge
+
+    cols = _step_cols(4096, read_len)
+    dense = ge.fused_device_step(device=cuda)(*cols)
+    step = ge.fused_device_step_packed(width=read_len, device=cuda)
+    got = step(*ge.pack_step_columns(cols))
+    assert len(step.graphs) == 1
+    _equal_outputs(got, dense)
+
+
+@pytest.mark.cuda
+def test_capture_failure_raises(cuda, monkeypatch):
+    """An op that synchronizes (``.item()``) cannot be captured: the first
+    call raises and keeps no graph; nothing runs the step eagerly."""
+    from elprep_tpu_torch import graft_entry as ge
+    from elprep_tpu_torch.ops import bqsr_ops
+
+    apply = bqsr_ops.apply_bqsr
+    calls = []
+
+    def syncing_apply(*a, **k):
+        out = apply(*a, **k)
+        calls.append(int(out[1].item()))
+        return out
+
+    monkeypatch.setattr(bqsr_ops, "apply_bqsr", syncing_apply)
+    step = ge.fused_device_step(device=cuda)
+    with pytest.raises(RuntimeError):
+        step(*_step_cols(512))
+    # the warm-up ran it eagerly on the side stream; the capture then failed
+    assert len(calls) == ge._GraphedStep.WARMUP
+    assert not step.graphs
+    # the card is still usable
+    assert int(torch.arange(5, device=cuda).sum()) == 10
+
+
+@pytest.mark.cuda
+def test_entry_on_cuda_equals_cpu(cuda):
+    from elprep_tpu_torch import graft_entry as ge
+
+    fn, args = ge.entry()
+    assert all(a.device.type == "cuda" for a in args)
+    assert isinstance(fn, ge._GraphedStep)
+    got = fn(*args)
+    cfn, cargs = ge.entry("cpu")
+    _equal_outputs(got, cfn(*cargs))
+    assert ge.sync_scalar(got) == ge.sync_scalar(cfn(*cargs))
