@@ -22,6 +22,7 @@ work starts.
 from __future__ import annotations
 
 import argparse
+import itertools
 import os
 import sys
 import time
@@ -30,11 +31,17 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from . import device as _device
+from . import trace
 
 _PHASE = [0]
+# the ids of this process's --timed jobs in the span recorder
+_JOBS = itertools.count(1)
 
-def _timed(enabled: bool, msg: str, fn, profile: str = ""):
-    """(reference: timedRun, cmd/util.go:262-281)"""
+
+def _timed(enabled: bool, msg: str, fn, profile: str, span: str):
+    """(reference: timedRun, cmd/util.go:262-281). With ``enabled`` (a
+    ``--timed`` job, whose recorder is on) the phase is the span ``span``
+    and its seconds are the span's."""
     _PHASE[0] += 1
     if profile:
         import cProfile
@@ -42,10 +49,10 @@ def _timed(enabled: bool, msg: str, fn, profile: str = ""):
         pr = cProfile.Profile()
         pr.enable()
     if enabled:
-        t0 = time.time()
         print(msg, file=sys.stderr)
-        out = fn()
-        print(f"  done in {time.time() - t0:.2f}s", file=sys.stderr)
+        with trace.span(span) as sp:
+            out = fn()
+        print(f"  done in {sp.seconds:.2f}s", file=sys.stderr)
     else:
         out = fn()
     if profile:
@@ -159,6 +166,26 @@ def _build_filter_parser() -> argparse.ArgumentParser:
 
 
 def filter_command(argv: List[str]) -> int:
+    """``filter``. With ``--timed`` the job runs under the span recorder
+    (trace.py): its phases, threads and pool as spans and counters under
+    the root span ``job``, then one summary line per process kind, thread
+    and name on standard error."""
+    args = _build_filter_parser().parse_args(argv)
+    if not args.timed:
+        return _filter(args, argv)
+    job = next(_JOBS)
+    trace.enable(job)
+    try:
+        with trace.span("job"):
+            rc = _filter(args, argv)
+    finally:
+        trace.disable()
+    for line in trace.summary(job):
+        print(line, file=sys.stderr)
+    return rc
+
+
+def _filter(args, argv: List[str]) -> int:
     from .core.header import SortingOrder
     from .core.pipeline import SamData, run_pipeline
     from .io import sam as samio
@@ -171,7 +198,6 @@ def filter_command(argv: List[str]) -> int:
     from .io import bed as bedio
     from .io import intervals as iv
 
-    args = _build_filter_parser().parse_args(argv)
     command_line = "elprep_tpu_torch filter " + " ".join(argv)
     dev = _device.default_device_from_env()
 
@@ -290,7 +316,7 @@ def filter_command(argv: List[str]) -> int:
             and args.output not in ("/dev/null", "/dev/zero")):
         _timed(args.timed, "Running pipeline.",
                lambda: _streaming_phase(args, filters1 + filters2, sorting_order),
-               args.profile)
+               args.profile, "phase.stream")
         return 0
 
     def read_phase():
@@ -299,11 +325,13 @@ def filter_command(argv: List[str]) -> int:
             # (reference: sam/merge-inputs.go)
             from .io.merge_inputs import read_and_merge_files
 
-            hdr, batch = read_and_merge_files(sorted(
-                os.path.join(args.input, f) for f in os.listdir(args.input)
-                if not f.startswith(".")))
+            with trace.span("read.parse"):
+                hdr, batch = read_and_merge_files(sorted(
+                    os.path.join(args.input, f) for f in os.listdir(args.input)
+                    if not f.startswith(".")))
         else:
-            hdr, batch = samio.read_sam_file(args.input)
+            with trace.span("read.parse"):
+                hdr, batch = samio.read_sam_file(args.input)
         if use_sharded:
             from .core.pipeline import effective_sorting_order
             from .parallel.mesh import make_mesh
@@ -318,7 +346,8 @@ def filter_command(argv: List[str]) -> int:
             return run_pipeline(SamData(data0.header, batch2),
                                 [fsimple.remove_optional_reads], SortingOrder.KEEP,
                                 device=dev)
-        return run_pipeline(SamData(hdr, batch), filters1, sorting_order, device=dev)
+        return run_pipeline(SamData(hdr, batch), filters1, sorting_order, device=dev,
+                            spans=("read.dedup", "read.sort"))
 
     _setup_log(args.log_path, command_line)
     pool = None
@@ -331,7 +360,7 @@ def filter_command(argv: List[str]) -> int:
 
         pool = get_pool(_nr_workers(args))
     data = _timed(args.timed, "Reading SAM into memory and applying filters.",
-                  read_phase, args.profile)
+                  read_phase, args.profile, "phase.read")
 
     # Phase 2: optical duplicates — host numpy over a snapshot of the
     # post-dedup batch, independent of BQSR, so when a table build
@@ -364,7 +393,7 @@ def filter_command(argv: List[str]) -> int:
                       "recalibration).")
         else:
             _timed(args.timed, "Marking optical duplicates.", optical_phase,
-                   args.profile)
+                   args.profile, "phase.optical")
 
     post_sort = sorting_order
     if post_sort != SortingOrder.UNSORTED:
@@ -394,7 +423,8 @@ def filter_command(argv: List[str]) -> int:
                 return recal.recalibrate(data.header, data.batch, args.max_cycle,
                                          pool=pool, device=dev)
         try:
-            tables = _timed(args.timed, "Base recalibration.", recal_fn, args.profile)
+            tables = _timed(args.timed, "Base recalibration.", recal_fn, args.profile,
+                            "phase.bqsr.tables")
         except BaseException:
             # report the overlapped optical thread before the recal
             # error propagates, so it does not fail invisibly
@@ -425,7 +455,8 @@ def filter_command(argv: List[str]) -> int:
                                                    args.max_cycle, device=dev)],
                     post_sort, device=dev)
 
-            data = _timed(args.timed, "Apply BQSR.", apply_phase, args.profile)
+            data = _timed(args.timed, "Apply BQSR.", apply_phase, args.profile,
+                          "phase.bqsr.apply")
     elif args.bqsr_apply:
         tables = bqsr_report.load_and_combine_bqsr_tables(args.bqsr_apply)
         tables.finalize()
@@ -458,7 +489,8 @@ def filter_command(argv: List[str]) -> int:
 
                 def _write():
                     try:
-                        samio.write_sam_file(args.output, snap_hdr, snap, fmt=fmt)
+                        with trace.span("write.bam"):
+                            samio.write_sam_file(args.output, snap_hdr, snap, fmt=fmt)
                     except BaseException as e:  # re-raised after HC
                         errs.append(e)
 
@@ -466,16 +498,19 @@ def filter_command(argv: List[str]) -> int:
                 th.start()
                 pending_write.append((th, errs))
             else:
-                samio.write_sam_file(args.output, out.header, out.batch, fmt=fmt)
+                with trace.span("write.bam"):
+                    samio.write_sam_file(args.output, out.header, out.batch, fmt=fmt)
             return out
 
-        data = _timed(args.timed, "Write to file.", write_phase, args.profile)
+        data = _timed(args.timed, "Write to file.", write_phase, args.profile,
+                      "phase.write")
 
     try:
         if want_hc:
             _timed(args.timed, "Calling variants.",
                    lambda: _run_haplotypecaller(args, data, mapped_fasta, bed_regions,
-                                                command_line, post_sort), args.profile)
+                                                command_line, post_sort), args.profile,
+                   "phase.hc")
     finally:
         in_flight = sys.exc_info()[0] is not None
         for th, errs in pending_write:

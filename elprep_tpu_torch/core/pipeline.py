@@ -22,10 +22,11 @@ Sorting runs as a torch permutation on the caller's device
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 
+from .. import trace
 from .batch import ReadBatch
 from .header import Header, SortingOrder
 
@@ -110,13 +111,18 @@ def run_pipeline(
     filters: List[Optional[Filter]],
     sorting_order: SortingOrder = SortingOrder.KEEP,
     device=None,
+    spans: Tuple[str, str] = ("pipeline.filters", "pipeline.sort"),
 ) -> SamData:
-    """In-memory RunPipeline (reference: sam/filter-pipeline.go:242-279)."""
+    """In-memory RunPipeline (reference: sam/filter-pipeline.go:242-279).
+    ``spans`` names the recorder's spans (trace.py) of the filters and of
+    the sort."""
     header = data.header
     original = header.hd_so()
     batch_filters = compose_filters(header, filters)
     sorting_order = effective_sorting_order(sorting_order, header, original)
-    batch = apply_filters(data.batch, batch_filters)
+    with trace.span(spans[0]):
+        batch = apply_filters(data.batch, batch_filters)
     if sorting_order in (SortingOrder.COORDINATE, SortingOrder.QUERYNAME):
-        batch = sort_batch(batch, sorting_order, device=device)
+        with trace.span(spans[1]):
+            batch = sort_batch(batch, sorting_order, device=device)
     return SamData(header=header, batch=batch)

@@ -25,6 +25,7 @@ import math
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
+from .. import trace
 from ..ops import sw
 
 MIN_PRUNING_FACTOR = 2
@@ -624,8 +625,9 @@ class KmerGraph:
             ref_path = self.find_reference_path(alt_path)
             alt_bases = self.path_suffix_bases(alt_path)
             ref_bases = self.path_suffix_bases(ref_path)
-            cigar, _ = sw.run_smith_waterman(ref_bases, alt_bases,
-                                             *sw.ASSEMBLY_SW_PARAMS, sw.LEADING_INDEL)
+            with trace.counting("hc.sw"):
+                cigar, _ = sw.run_smith_waterman(ref_bases, alt_bases,
+                                                 *sw.ASSEMBLY_SW_PARAMS, sw.LEADING_INDEL)
             if cigar and cigar[-1][1] == "D":
                 cigar = cigar[:-1]
             if not cigar or len(cigar) > MAX_CIGAR_COMPLEXITY or cigar[-1][1] != "M":
@@ -707,8 +709,9 @@ class KmerGraph:
             ref_path = self.find_reference_path_up(alt_path)
             alt_bases = self.path_bases_expanded_sources(alt_path)
             ref_bases = self.path_bases_expanded_sources(ref_path)
-            cigar, _ = sw.run_smith_waterman(ref_bases, alt_bases,
-                                             *sw.ASSEMBLY_SW_PARAMS, sw.LEADING_INDEL)
+            with trace.counting("hc.sw"):
+                cigar, _ = sw.run_smith_waterman(ref_bases, alt_bases,
+                                                 *sw.ASSEMBLY_SW_PARAMS, sw.LEADING_INDEL)
             if cigar and cigar[-1][1] == "D":
                 cigar = cigar[:-1]
             if not cigar or len(cigar) > MAX_CIGAR_COMPLEXITY or cigar[0][1] != "M":
@@ -1247,8 +1250,9 @@ def finish_candidates(result: List[Haplotype],
     for score, bases in candidates:
         if bases in existing:
             continue
-        cigar = sw.calculate_cigar(reference_haplotype.bases, bases,
-                                   padded_reference_bases, sw.SOFTCLIP)
+        with trace.counting("hc.sw"):
+            cigar = sw.calculate_cigar(reference_haplotype.bases, bases,
+                                       padded_reference_bases, sw.SOFTCLIP)
         if not cigar or any(op == "N" for _, op in cigar) \
                 or sw.reference_length(cigar) < MIN_HAPLOTYPE_REFERENCE_LENGTH:
             continue

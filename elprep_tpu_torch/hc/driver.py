@@ -23,6 +23,7 @@ from ..core.header import Header
 from ..io import vcf as vcfmod
 from ..io.vcf import FormatInformation, MetaInformation, Variant, VcfHeader
 from ..filters.clipping import ClipRead, hard_clip_to_region, read_length_from_cigar
+from .. import trace
 from ..ops import pairhmm, sw
 from . import tables
 from .activity import (
@@ -278,36 +279,26 @@ class _CombinerPump:
         self._q: "queue.Queue" = queue.Queue(maxsize=max_queue)
         self._exc: Optional[BaseException] = None
         self._tb = None
-        self._t = threading.Thread(target=self._loop, daemon=True)
+        self._t = threading.Thread(target=self._loop, daemon=True,
+                                   name="hc-combiner")
         self._t.start()
 
     def _loop(self) -> None:
-        prof = None
-        prof_path = os.environ.get("ELPREP_TPU_PUMP_PROFILE")
-        if prof_path:
-            import cProfile
-
-            prof = cProfile.Profile()
-            prof.enable()
-        try:
-            while True:
-                item = self._q.get()
-                if item is None:
-                    return
-                if self._exc is not None:
-                    continue  # drain without combining after a failure
-                try:
+        while True:
+            item = self._q.get()
+            if item is None:
+                return
+            if self._exc is not None:
+                continue  # drain without combining after a failure
+            try:
+                with trace.span("hc.combine"):
                     if item[0] == "flush":
                         self._flush()
                     else:
                         self._combine(item[1], item[2], item[3])
-                except BaseException as e:
-                    self._tb = e.__traceback__
-                    self._exc = e
-        finally:
-            if prof is not None:
-                prof.disable()
-                prof.dump_stats(prof_path)
+            except BaseException as e:
+                self._tb = e.__traceback__
+                self._exc = e
 
     def check(self) -> None:
         """Raise the sticky failure (callable from any polling loop).
@@ -777,10 +768,6 @@ def call_variants(
     cs = sam_header.contigs()
     valid_contigs = set(cs) if cs else None
 
-    from .parallel import make_tracer
-
-    _tr = make_tracer("hc")
-
     def _iter_units():
         """Yield one work unit per (contig, span): the per-contig
         downsampling/reference/position prep runs lazily the first time
@@ -850,9 +837,6 @@ def call_variants(
          region_block, region_reads, region_positions) = u
         from .parallel import ACT_CHUNK
 
-        _tr("%s span %d-%d: launch (%d reads)", contig, start, stop,
-            len(region_block) if region_block is not None
-            else len(region_reads))
         gen = pool.new_span(params, reference, contig, contig_length,
                             ref_key=contig)
         pool.distribute_span(
@@ -937,7 +921,6 @@ def call_variants(
             if tick is not None and not tick():
                 tick = None  # done (or nothing to pre-start)
             pump.put_batch(contig, reference, region_variants)
-        _tr("%s: regions consumed", contig)
 
     def _enter_contig(contig):
         # the run buffer must not cross a contig switch: its runs belong
@@ -964,8 +947,6 @@ def call_variants(
         regions = compute_assembly_regions(
             contig, reference, start, stop, contig_length, states, params,
             keep_states=activity_profile is not None)
-        _tr("%s: %d regions built (%d active)", contig, len(regions),
-            sum(1 for r in regions if r.is_active))
         if assembly_regions_out is not None or activity_profile is not None:
             _print_assembly_regions(assembly_regions_out, activity_profile,
                                     regions)
@@ -992,7 +973,6 @@ def call_variants(
 
                 if pre is None:
                     results = pool.collect_activity(gen)
-                    _tr("%s: activity done", u[0])
                     regions = _build_regions(u, bounds, results)
                     run = pool.start_regions(gen, params, regions,
                                              use_device_pairhmm)
@@ -1009,7 +989,6 @@ def call_variants(
                     if not pool.activity_ready(nxt[1]):
                         return True  # keep checking
                     res2 = pool.collect_activity(nxt[1])
-                    _tr("%s: activity done (prefetched)", nxt[0][0])
                     regions2 = _build_regions(nxt[0], nxt[2], res2)
                     nxt[3] = (regions2, pool.start_regions(
                         nxt[1], params, regions2, use_device_pairhmm))
@@ -1042,6 +1021,10 @@ def call_variants(
                 _consume_unit(u, _iter_region_results_serial(
                     params, regions, deletions, use_device_pairhmm, fill_reads))
 
+    # a traced job (the recorder on) records in the workers too
+    traced = pool is not None and trace.enabled()
+    if traced:
+        pool.trace_workers(trace.current_job())
     try:
         _consume_all_units()
     except BaseException:
@@ -1053,8 +1036,12 @@ def call_variants(
             pump.close()
         except BaseException:
             pass
+        if traced:
+            pool.trace_workers(None)
         raise
     pump.close()  # joins the combiner thread; re-raises its failure
+    if traced:
+        pool.drain_traces()
     if gvcf and combiner is not None:
         out_variants = flush_runs(out_variants)
         final = combiner.finalize()
@@ -1063,6 +1050,5 @@ def call_variants(
     if variant_sink is not None:
         variant_sink.write_variants(out_variants)
         out_variants = []
-    _tr("call_variants returning")
     return vcf_header, out_variants
 

@@ -25,6 +25,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from ..io.vcf import Genotype, Variant
+from .. import trace
 from ..ops import sw
 from ..filters.clipping import (
     RIGHT,
@@ -1697,8 +1698,9 @@ def realign_reads_to_best_haplotype(likelihoods: ReadLikelihoods,
                     best_h, best_p = h, p
                 elif p > second_p:
                     second_h, second_p = h, p
-        cigar, alignment_offset = sw.run_smith_waterman(
-            best_h.bases, aln.seq, *sw.REALIGN_SW_PARAMS, sw.SOFTCLIP)
+        with trace.counting("hc.sw"):
+            cigar, alignment_offset = sw.run_smith_waterman(
+                best_h.bases, aln.seq, *sw.REALIGN_SW_PARAMS, sw.SOFTCLIP)
         if alignment_offset < 0:
             continue
         if best_h.cigar[-1][1] == "M":

@@ -39,10 +39,13 @@ from __future__ import annotations
 import bisect
 import multiprocessing as mp
 import os
+import time
 import traceback
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+
+from .. import trace
 
 # regions per prepare task: small for load balance across skewed costs
 PREP_TASK_SIZE = 48
@@ -87,21 +90,9 @@ MAX_INFLIGHT = 8
 # payloads, so the bound also caps buffered memory)
 PRESTART_BUFFER = 8 * MAX_INFLIGHT
 
-
-def make_tracer(tag: str):
-    """ELPREP_TPU_HC_TRACE-gated stderr tracer with a per-call-site
-    clock (shared by the driver, the region runs, and the CLI)."""
-    import sys as _sys
-    import time as _time
-
-    if not os.environ.get("ELPREP_TPU_HC_TRACE"):
-        return lambda fmt, *a: None
-    t0 = _time.perf_counter()
-
-    def _tr(fmt, *a):
-        print("[%s %.3f] " % (tag, _time.perf_counter() - t0) + fmt % a,
-              file=_sys.stderr, flush=True)
-    return _tr
+# the recorder's span (trace.py) of each kind of worker message
+_WORKER_SPANS = {"prep": "worker.task", "geno": "worker.geno",
+                 "redo": "worker.redo", "act": "worker.act"}
 
 
 def _worker_main(wid: int, req_q, res_q) -> None:
@@ -308,26 +299,36 @@ def _worker_loop(wid: int, req_q, res_q) -> None:
 
     refs: Dict[object, bytes] = {}
     spans: Dict[int, _Span] = {}
-
-    import time as _time
-
-    _trace = os.environ.get("ELPREP_TPU_HC_TRACE")
-    _busy: Dict[str, float] = {}
-    _nmsg: Dict[str, int] = {}
-    _prev_kind = None
-    _prev_t0 = _loop0 = _time.perf_counter()
+    # the span of the message being handled: a handler ends with
+    # ``continue``, so the span ends at the top of the next turn
+    busy = trace.NOOP
 
     try:
         while True:
-            _w0 = _time.perf_counter()
-            if _trace and _prev_kind is not None:
-                _busy[_prev_kind] = _busy.get(_prev_kind, 0.0) + (_w0 - _prev_t0)
-                _nmsg[_prev_kind] = _nmsg.get(_prev_kind, 0) + 1
+            busy.__exit__(None, None, None)
+            busy = trace.NOOP
             msg = req_q.get()
-            _prev_t0 = _time.perf_counter()
-            kind = _prev_kind = msg[0]
+            kind = msg[0]
             if kind == "stop":
                 return
+            name = _WORKER_SPANS.get(kind)
+            if name is not None and trace.enabled():
+                # a prep task carries the main process's send stamp when on
+                busy = (trace.span(name, regions=len(msg[4]), sent=msg[7])
+                        if kind == "prep" else trace.span(name)).__enter__()
+            if kind == "trace":
+                # the pool switches the recorder on for a job (None: off,
+                # the records dropped)
+                if msg[1] is None:
+                    trace.disable()
+                    trace.clear()
+                else:
+                    trace.enable(msg[1], proc="worker")
+                continue
+            if kind == "trace_drain":
+                trace.disable()
+                res_q.put(("trace_records", None, wid, trace.drain()))
+                continue
             if kind == "probe":
                 # where this worker runs: its process, the cards it can
                 # see, its session device, whether it opened a CUDA
@@ -347,7 +348,7 @@ def _worker_loop(wid: int, req_q, res_q) -> None:
                     "rendezvous_env": sorted(
                         k for k in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE")
                         if k in os.environ),
-                    "cpu_s": _time.process_time()}))
+                    "cpu_s": time.process_time()}))
                 continue
             if kind == "ref":
                 _, ref_key, ref_bytes = msg
@@ -366,19 +367,6 @@ def _worker_loop(wid: int, req_q, res_q) -> None:
                 continue
             if kind == "drop_span":
                 spans.pop(msg[1], None)
-                if _trace:
-                    import sys as _sys
-
-                    wall = _time.perf_counter() - _loop0
-                    parts = " ".join(
-                        "%s=%.2fs/%d" % (k, _busy[k], _nmsg[k])
-                        for k in sorted(_busy))
-                    print("[wk%d] wall=%.2fs busy: %s" % (wid, wall, parts),
-                          file=_sys.stderr, flush=True)
-                    _busy.clear()
-                    _nmsg.clear()
-                    _loop0 = _time.perf_counter()
-                    _prev_kind = None
                 continue
             if kind == "reads_block_shm":
                 # the whole span block sits in ONE shared-memory segment;
@@ -547,7 +535,7 @@ def _worker_loop(wid: int, req_q, res_q) -> None:
                 # plus the span context, so nothing object-shaped crosses
                 # the pipe (or needs snapshotting for redo: regions
                 # rebuild from the triple)
-                _, gen, task_id, rid0, r_starts, r_ends, r_actives = msg
+                _, gen, task_id, rid0, r_starts, r_ends, r_actives = msg[:7]
                 st = spans[gen]
                 out = []
                 # no-variation regions of a columnar span take ONE
@@ -722,21 +710,25 @@ class HCWorkerPool:
         self._shm_pool.clear()
 
     def _recv_raw(self, extra_check=None):
-        import queue as _queue
-
+        # the wait for a message and its read are separate spans: poll the
+        # queue's pipe (only this thread reads it), then get
+        reader = self.res_q._reader
         while True:
-            try:
-                # short timeout: the empty branch is also the worker
-                # failure detector, and 10s bounds how long a crashed
-                # worker can leave the main process waiting
-                msg = self.res_q.get(timeout=10)
-            except _queue.Empty:
-                if extra_check is not None:
-                    extra_check()
-                dead = [i for i, p in enumerate(self.procs) if not p.is_alive()]
-                if dead:
-                    raise RuntimeError(f"HC worker(s) {dead} died unexpectedly")
-                continue
+            if not reader.poll():
+                with trace.span("hc.wait"):
+                    # short timeout: the empty branch is also the worker
+                    # failure detector, and 10s bounds how long a crashed
+                    # worker can leave the main process waiting
+                    ready = reader.poll(10)
+                if not ready:
+                    if extra_check is not None:
+                        extra_check()
+                    dead = [i for i, p in enumerate(self.procs) if not p.is_alive()]
+                    if dead:
+                        raise RuntimeError(f"HC worker(s) {dead} died unexpectedly")
+                    continue
+            with trace.span("hc.recv"):
+                msg = self.res_q.get()
             if msg[0] == "error":
                 raise RuntimeError(f"HC worker {msg[1]} failed:\n{msg[2]}")
             if msg[0] == "prep_done":
@@ -745,7 +737,7 @@ class HCWorkerPool:
                 # pre-started next span whose results are only buffered
                 run = self._runs.get(msg[1])
                 if run is not None:
-                    run.note_prep_done(msg[2])
+                    run.note_prep_done(msg[2], msg[3])
             if msg[0] == "block_done":
                 # every worker copied its rows out of the span's shared
                 # block segment: release it
@@ -810,16 +802,14 @@ class HCWorkerPool:
         # (not pooling) the segment keeps the degraded path safe: a
         # worker still copying would hit FileNotFoundError -> "error"
         # -> surfaced, instead of racing a pooled reuse.
-        import time as _time
-
-        deadline = _time.monotonic() + 60.0
+        deadline = time.monotonic() + 60.0
 
         class _AckTimeout(Exception):
             pass
 
         def _deadline_check():
             # runs on every empty-queue wakeup inside _recv_raw
-            if _time.monotonic() > deadline:
+            if time.monotonic() > deadline:
                 raise _AckTimeout
 
         try:
@@ -965,6 +955,20 @@ class HCWorkerPool:
             out[msg[2]] = msg[3]
         return out
 
+    def trace_workers(self, job) -> None:
+        """Switch the workers' span recorders on for ``job`` (None: off,
+        their records dropped)."""
+        for q in self.req_qs:
+            q.put(("trace", job))
+
+    def drain_traces(self) -> None:
+        """Switch the workers' recorders off and merge their records into
+        this process's recorder."""
+        for q in self.req_qs:
+            q.put(("trace_drain",))
+        for _ in range(self.n):
+            trace.merge(self._recv_routed(("trace_records",), None)[3])
+
     def collect_activity(self, gen: int):
         """Gather (is_active, hq_mean) per chunk, in chunk order."""
         want = self._act_expect.pop(gen)
@@ -1093,7 +1097,6 @@ class _RegionRun:
         self.gen = gen
         self.regions = regions
         self.use_device_pairhmm = use_device_pairhmm
-        self._tr = make_tracer("pr")
 
         n = self.n = len(regions)
         # results per rid
@@ -1124,6 +1127,10 @@ class _RegionRun:
         for t, rids in enumerate(tasks):
             self.wtasks[self.owner[rids[0]]].append(t)
         self.inflight = [0] * pool.n
+        # with the recorder on: receipt time (perf_counter_ns) of each
+        # prep result by task, then of each pending region by rid
+        self.received: Dict[int, int] = {}
+        self.pend_received: Dict[int, int] = {}
         self.preps_received = 0
         self.preps_unconsumed = len(tasks)
         self.pending_batch: List[int] = []
@@ -1142,7 +1149,7 @@ class _RegionRun:
             while self.wtasks[w] and self.inflight[w] < MAX_INFLIGHT:
                 t = self.wtasks[w].popleft()
                 rids = self.tasks[t]
-                self.pool.req_qs[w].put((
+                msg = (
                     "prep", self.gen, t, rids[0],
                     np.fromiter((regions[r].start for r in rids),
                                 np.int64, len(rids)),
@@ -1150,34 +1157,51 @@ class _RegionRun:
                                 np.int64, len(rids)),
                     np.fromiter((regions[r].is_active for r in rids),
                                 np.bool_, len(rids)),
-                ))
+                )
+                if trace.enabled():
+                    # the send stamp: the worker's span reads its queue wait
+                    msg += (time.perf_counter_ns(),)
+                self.pool.req_qs[w].put(msg)
                 self.inflight[w] += 1
 
-    def note_prep_done(self, wid: int) -> None:
+    def note_prep_done(self, wid: int, task_id: int) -> None:
         """Receipt-side flow control (called from the pool's recv path
         the moment a prep_done arrives, even when this run's results are
         only being buffered). The refill stops once too many results sit
         unconsumed — a pre-started span must not buffer a whole contig's
         prepared payloads in the main process."""
+        if trace.enabled():
+            self.received[task_id] = time.perf_counter_ns()
         self.inflight[wid] -= 1
         self.preps_received += 1
         consumed = len(self.tasks) - self.preps_unconsumed
         if self.preps_received - consumed < PRESTART_BUFFER:
             self.send_tasks()
 
-    def _run_pairhmm(self, batch, workloads):
+    def _run_pairhmm(self, batch, workloads, received):
         # off the event loop: torch/numpy release the GIL during the
         # heavy work, so the recv/emit loop keeps draining results
         from ..ops import pairhmm
 
-        self._tr("pairhmm dispatch begin (%d regions, %d pairs)", len(batch),
-                 sum(len(w[0]) * len(w[1]) for w in workloads))
-        pairs = pairhmm.compute_read_likelihoods_multi(
-            workloads, use_device=self.use_device_pairhmm)
-        for rid, (vals, keep) in zip(batch, pairs):
-            self.pool.req_qs[self.owner[rid]].put(
-                ("geno", self.gen, rid, vals, keep, []))
-        self._tr("pairhmm dispatch end (%d regions)", len(batch))
+        with trace.span("pairhmm.batch") as sp:
+            pairs = pairhmm.compute_read_likelihoods_multi(
+                workloads, use_device=self.use_device_pairhmm)
+            if sp:
+                sp.set(regions=len(batch),
+                       pairs=sum(len(r) * len(h) for r, h, _ in workloads),
+                       cells=sum(sum(len(x[0]) for x in r) * sum(len(x) for x in h)
+                                 for r, h, _ in workloads))
+                dev = sp.child("pairhmm.device")
+                if dev is not None and received:
+                    # each region's wait from its prep result's receipt
+                    # to the batch's device start
+                    waits = [dev.start - t for t in received]
+                    sp.set(bytes=dev.attrs.get("bytes", 0), wait_sum_ns=sum(waits),
+                           wait_max_ns=max(waits))
+            with trace.span("pairhmm.send"):
+                for rid, (vals, keep) in zip(batch, pairs):
+                    self.pool.req_qs[self.owner[rid]].put(
+                        ("geno", self.gen, rid, vals, keep, []))
 
     def _batch_pairs(self) -> int:
         return sum(len(self.pend_inputs[rid][0]) * len(self.pend_inputs[rid][1])
@@ -1193,8 +1217,10 @@ class _RegionRun:
         batch = self.pending_batch[:]
         del self.pending_batch[:]
         workloads = [self.pend_inputs.pop(rid) for rid in batch]
+        received = [self.pend_received.pop(rid) for rid in batch
+                    if rid in self.pend_received]
         self.ph_futures.append(self.ph_pool.submit(self._run_pairhmm, batch,
-                                                   workloads))
+                                                   workloads, received))
 
     def check_pairhmm_errors(self) -> None:
         # a failed dispatch would otherwise hang the pipeline: its
@@ -1218,7 +1244,8 @@ class _RegionRun:
         regions = self.regions
         term, geno = self.term, self.geno
         redo_sent = self.redo_sent
-        self.ph_pool = ThreadPoolExecutor(max_workers=_dispatch_tuning()[2])
+        self.ph_pool = ThreadPoolExecutor(max_workers=_dispatch_tuning()[2],
+                                          thread_name_prefix="pairhmm-dispatch")
         emit = 0
         try:
             while emit < n:
@@ -1269,8 +1296,7 @@ class _RegionRun:
                     _, _, wid, task_id, out = msg
                     self.preps_unconsumed -= 1
                     self.send_tasks()  # receipt-side refill may be capped
-                    if self.preps_unconsumed == 0:
-                        self._tr("all preps done (emit=%d/%d)", emit, n)
+                    t_recv = self.received.pop(task_id, None)
                     for item in out:
                         rid = item[0]
                         if item[1] == "term":
@@ -1278,6 +1304,8 @@ class _RegionRun:
                         else:
                             self.pend_inputs[rid] = (item[2], item[3], item[4])
                             self.pending_batch.append(rid)
+                            if t_recv is not None:
+                                self.pend_received[rid] = t_recv
                     self.dispatch_pairhmm(force=self.preps_unconsumed == 0)
                 elif msg[0] == "geno_done":
                     _, _, rid, variants, outgoing = msg

@@ -38,6 +38,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import trace
 from ..hc import tables
 from .pairhmm import (F32_INITIAL_POW, F32_RESCUE_LOG10, modified_qualities,
                       pairhmm_f64_diag, repeat_lengths_for_read)
@@ -530,30 +531,36 @@ def pairhmm_pairs(reads, haps, pair_r, pair_h, devices) -> np.ndarray:
     kernel (or, for the CPU, its plain version), then the f64 host rescue
     of underflowed pairs. The pair axis splits into one contiguous chunk
     per entry of ``devices`` (one device, or the PairHMM mesh, which may
-    name a device more than once); every chunk is launched before any
-    result is read back, so chunks on different cards overlap. A pair's
-    value does not depend on its batch (padding invariance), so the split
-    is bit-exact."""
+    name a device more than once); every chunk is packed, then every chunk
+    is launched before any result is read back, so chunks on different
+    cards overlap. A pair's value does not depend on its batch (padding
+    invariance), so the split is bit-exact. Recorder spans (trace.py):
+    ``pairhmm.pack``, ``pairhmm.device`` (from the first copy to the
+    device through the last read-back; attributes ``bytes`` and
+    ``launches``, the kernels launched) and ``pairhmm.rescue``."""
     n = len(pair_r)
     if n == 0:
         return np.zeros(0, np.float64)
     pair_r = np.asarray(pair_r)
     pair_h = np.asarray(pair_h)
     per = -(-n // len(devices))
-    accs = []
-    for k, device in enumerate(devices):
-        sl = slice(k * per, min(n, (k + 1) * per))
-        if sl.start >= n:
-            break
-        dev = torch.device(device)
-        batch = pack_pairs(reads, haps, pair_r[sl], pair_h[sl]).to(dev)
-        accs.append(pairhmm_forward(batch, default_tables(dev)))
-    acc = np.concatenate([a.cpu().numpy() for a in accs])
+    chunks = [(torch.device(d), slice(k * per, min(n, (k + 1) * per)))
+              for k, d in enumerate(devices) if k * per < n]
+    with trace.span("pairhmm.pack"):
+        packed = [pack_pairs(reads, haps, pair_r[sl], pair_h[sl]) for _, sl in chunks]
+    with trace.span("pairhmm.device") as sp:
+        if sp:
+            sp.set(bytes=sum(int(b.blob.numel()) for b in packed),
+                   launches=sum(dev.type == "cuda" for dev, _ in chunks))
+        accs = [pairhmm_forward(b.to(dev), default_tables(dev))
+                for (dev, _), b in zip(chunks, packed)]
+        acc = np.concatenate([a.cpu().numpy() for a in accs])
     with np.errstate(divide="ignore"):
         out = np.log10(acc.astype(np.float64)) - F32_INITIAL_POW * np.log10(2.0)
     # f64 rescue for underflow (GATK float->double strategy), on the host
     bad = ~np.isfinite(out) | (out < F32_RESCUE_LOG10)
-    for b in np.flatnonzero(bad):
-        seq, qual, mapq = reads[int(pair_r[b])]
-        out[b] = pairhmm_f64_diag(seq, qual, mapq, haps[int(pair_h[b])])
+    with trace.span("pairhmm.rescue"):
+        for b in np.flatnonzero(bad):
+            seq, qual, mapq = reads[int(pair_r[b])]
+            out[b] = pairhmm_f64_diag(seq, qual, mapq, haps[int(pair_h[b])])
     return out

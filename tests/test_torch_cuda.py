@@ -310,6 +310,51 @@ def test_logl_pairs_on_cuda_matches_f64(cuda):
 
 
 @pytest.mark.cuda
+def test_span_clock_brackets_the_profiler_trace(cuda, tmp_path):
+    """20 pairhmm_pairs calls with the span recorder on, under
+    torch.profiler: the bracket fit of the pairhmm.device spans to the
+    trace's PairHMM kernels (gpubench/spanclock.py) is non-empty and
+    narrower than 1 ms."""
+    import json
+    import os
+    import sys
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from elprep_tpu_torch import trace
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "gpubench"))
+    import spanclock
+
+    reads, haps, pair_r, pair_h = _case(9, [101] * 64, [250, 300, 350, 400])
+    pc.pairhmm_pairs(reads, haps, pair_r, pair_h, (cuda,))  # the library and tables
+    torch.cuda.synchronize()
+    trace.clear()
+    trace.enable("clock")
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                pc.pairhmm_pairs(reads, haps, pair_r, pair_h, (cuda,))
+    finally:
+        trace.disable()
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    kernels = [(float(ev["ts"]), float(ev.get("dur", 0))) for ev in events
+               if ev.get("ph") == "X" and ev.get("cat") == "kernel"
+               and "pairhmm" in ev.get("name", "")]
+    spans = [(s["start"], s["end"], s["attrs"]["launches"])
+             for s in trace.snapshot()["spans"] if s["name"] == "pairhmm.device"]
+    trace.clear()
+    assert len(kernels) == len(spans) == 20
+    fit = spanclock.fit(spans, kernels)
+    assert fit is not None and 0 <= fit.width_us < 1000, fit
+    print("span clock fit: width %.3f us, rate %.9f" % (fit.width_us, fit.rate))
+
+
+@pytest.mark.cuda
 def test_wrapper_rejects_mixed_devices(cuda):
     reads, haps, pair_r, pair_h = _case(4, [20], [30])
     batch = pc.pack_pairs(reads, haps, pair_r, pair_h).to(cuda)
