@@ -511,6 +511,28 @@ def genotype_region(params: HCParams, pending: PendingRegion,
                     ) -> Tuple[List[SingleVariant], List[Tuple[int, int]]]:
     """Second stage of call_region: consume precomputed PairHMM
     likelihoods, genotype, and emit variants + outgoing deletions."""
+    deletions = DeletionsHandler(incoming_deletions)
+    variants = _genotype(params, pending, vals, keep, deletions)
+    return variants, deletions.slice
+
+
+def genotype_region_speculative(params: HCParams, pending: PendingRegion,
+                                vals: np.ndarray, keep: np.ndarray
+                                ) -> Tuple[List[SingleVariant],
+                                           List[Tuple[int, int]], bool]:
+    """genotype_region under an assumed-empty incoming deletions carry,
+    for a pool worker that cannot know the true one yet: (variants,
+    outgoing, consulted). Where ``consulted`` is false genotyping never
+    read the carry, so under a true incoming carry ``c`` the variants
+    are the same and the outgoing carry is ``c + outgoing``."""
+    deletions = DeletionsHandler([])
+    variants = _genotype(params, pending, vals, keep, deletions)
+    return variants, deletions.slice, deletions.consulted
+
+
+def _genotype(params: HCParams, pending: PendingRegion, vals: np.ndarray,
+              keep: np.ndarray, deletions: DeletionsHandler
+              ) -> List[SingleVariant]:
     gvcf = params.confidence_mode != "NONE"
     variants: List[SingleVariant] = []
     region = pending.region
@@ -519,29 +541,20 @@ def genotype_region(params: HCParams, pending: PendingRegion,
     haplotypes = pending.haplotypes
     filtered_reads = pending.filtered_reads
 
-    def ref_model_exit(target_region: AssemblyRegion):
-        if params.confidence_mode == "NONE":
-            return variants, incoming_deletions
-        reference_model_for_no_variation(params, variants, target_region, gvcf)
-        return variants, incoming_deletions
-
     kept_alns = [r for r, k in zip(region_for_genotyping.reads, keep) if k]
     likelihoods = ReadLikelihoods(haps=haplotypes, alns=kept_alns, values=vals)
 
     realign_reads_to_best_haplotype(likelihoods, haplotypes)
-    deletions = DeletionsHandler(incoming_deletions)
     return_calls, _called = assign_genotype_likelihoods(
         params, region_for_genotyping, filtered_reads, haplotypes, likelihoods,
         deletions)
-    outgoing = deletions.slice
 
     if not return_calls:
-        if params.confidence_mode == "NONE":
-            return variants, outgoing
-        v, _ = ref_model_exit(region)
-        return v, outgoing
+        if gvcf:
+            reference_model_for_no_variation(params, variants, region, gvcf)
+        return variants
 
-    if params.confidence_mode == "NONE":
+    if not gvcf:
         for call in return_calls:
             raw = call.info.pop("RAW_MQandDP", None)
             if raw is not None:
@@ -550,7 +563,7 @@ def genotype_region(params: HCParams, pending: PendingRegion,
                 call.info["MQ"] = formatf(rms, 2)
             compute_genotype_format(call)
         variants.extend(SingleVariant(full_variant=c) for c in return_calls)
-        return variants, outgoing
+        return variants
 
     for call in return_calls:
         compute_genotype_format(call)
@@ -568,7 +581,7 @@ def genotype_region(params: HCParams, pending: PendingRegion,
             params, variants,
             trim_region1(region, trimming.right_flank_start, trimming.right_flank_end,
                          region.extension), gvcf)
-    return variants, outgoing
+    return variants
 
 
 def call_region(params: HCParams, region: AssemblyRegion,

@@ -766,13 +766,18 @@ def compute_log10_non_ref(params: HCParams, vc: Variant, reduced_alt: List[str],
 class DeletionsHandler:
     """Sequential stand-in for the reference's side channel: the slice of
     (start, end) deletions flows from one region to the next (reference:
-    side-channel.go:26-132)."""
+    side-channel.go:26-132). ``consulted`` records whether
+    :func:`is_vc_covered_by_deletion` read the slice; until it does, the
+    slice is only appended to, so the outgoing slice is the incoming one
+    followed by this region's own entries."""
 
     def __init__(self, incoming: Optional[List[Tuple[int, int]]]) -> None:
         self.slice: List[Tuple[int, int]] = list(incoming or [])
+        self.consulted = False
 
 
 def is_vc_covered_by_deletion(deletions: DeletionsHandler, vc: Variant) -> bool:
+    deletions.consulted = True
     i = 0
     while i < len(deletions.slice):
         d = deletions.slice[i]

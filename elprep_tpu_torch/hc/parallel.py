@@ -10,14 +10,17 @@ parallelism is built from a persistent pool of worker processes:
 - the main process keeps the batched device PairHMM dispatch and the
   strictly ordered GVCF combiner;
 - the deletions carry is handled speculatively: workers genotype with an
-  assumed-empty incoming-deletions list, and the ordered consumer in the
-  main process re-runs a region (fresh ``prepare_region`` from the
-  original inputs, reusing the already-computed PairHMM values, which
-  depend only on the deterministic prepare outputs) whenever the true
-  incoming list turns out non-empty. Spanning deletions crossing region
-  boundaries are rare, so almost all speculative results are exact and
-  accepted as-is; the redo path restores exact serial semantics for the
-  rest.
+  assumed-empty incoming-deletions list and report whether genotyping
+  read it (only a spanning-deletion ``*`` allele does). The ordered
+  consumer in the main process accepts a result that never read the
+  carry, with the true carry followed by the region's own entries as
+  the outgoing one: until it is read the carry is only appended to. It
+  re-runs a region (fresh ``prepare_region`` from the original inputs,
+  reusing the already-computed PairHMM values, which depend only on the
+  deterministic prepare outputs) only where genotyping read an empty
+  carry and the true one is not. The carry is rarely empty (in GVCF
+  mode every called site appends its ``<NON_REF>`` span) but rarely
+  read, so the redo is rare too, and serial semantics stay exact.
 
 Workers are spawned (never forked: the parent may hold a live CUDA
 context) and are kept off the card: before anything touches
@@ -28,10 +31,11 @@ batched dispatcher of :class:`_RegionRun`. RNG safety: the
 Java-compatible RNG stream is consumed only by the per-contig
 downsampler in the main process, so worker scheduling cannot perturb it.
 
-This is the counterpart of elprep_tpu/hc/parallel.py: the message
-protocol, the speculative deletions-carry redo, flow control and the
-cross-span pre-start are the same; the worker set-up and the dispatch
-tuning are the port's own.
+This is the counterpart of elprep_tpu/hc/parallel.py: the messages,
+flow control and the cross-span pre-start are the same; the worker
+set-up, the dispatch tuning and the carry's rule (a ``geno_done`` says
+whether genotyping read the carry; only such a region is redone) are
+the port's own.
 """
 
 from __future__ import annotations
@@ -237,7 +241,8 @@ def _attach_shm_array(name: str, shape, dtype):
 
 
 def _worker_loop(wid: int, req_q, res_q) -> None:
-    from .driver import genotype_region, prepare_region
+    from .driver import (genotype_region, genotype_region_speculative,
+                         prepare_region)
 
     bqsr_ctx = None
     bqsr_shm, bqsr_classes = None, None
@@ -622,13 +627,13 @@ def _worker_loop(wid: int, req_q, res_q) -> None:
                 res_q.put(("prep_done", gen, wid, task_id, out))
                 continue
             if kind == "geno":
-                _, gen, rid, vals, keep, incoming = msg
+                _, gen, rid, vals, keep = msg
                 st = spans[gen]
                 ent = st.store[rid]
                 ent[2], ent[3] = vals, keep
-                variants, outgoing = genotype_region(st.params, ent[1], vals,
-                                                     keep, list(incoming))
-                res_q.put(("geno_done", gen, rid, variants, outgoing))
+                res_q.put(("geno_done", gen, rid)
+                          + genotype_region_speculative(st.params, ent[1],
+                                                        vals, keep))
                 continue
             if kind == "redo":
                 # speculative genotyping mutated the pending (realign):
@@ -650,7 +655,8 @@ def _worker_loop(wid: int, req_q, res_q) -> None:
                 variants, outgoing = genotype_region(st.params, pending,
                                                      ent[2], ent[3],
                                                      list(incoming))
-                res_q.put(("geno_done", gen, rid, variants, outgoing))
+                # final: the consumer takes a redo's result as it is
+                res_q.put(("geno_done", gen, rid, variants, outgoing, True))
                 continue
             raise ValueError(f"unknown message {kind!r}")
     except Exception:
@@ -1201,7 +1207,7 @@ class _RegionRun:
             with trace.span("pairhmm.send"):
                 for rid, (vals, keep) in zip(batch, pairs):
                     self.pool.req_qs[self.owner[rid]].put(
-                        ("geno", self.gen, rid, vals, keep, []))
+                        ("geno", self.gen, rid, vals, keep))
 
     def _batch_pairs(self) -> int:
         return sum(len(self.pend_inputs[rid][0]) * len(self.pend_inputs[rid][1])
@@ -1260,17 +1266,24 @@ class _RegionRun:
                             progressed = True
                             continue
                         if emit in geno:
-                            if deletions and emit not in redo_sent:
-                                # speculation assumed no incoming
-                                # deletions: rerun with the true carry
+                            variants, outgoing, consulted = geno.pop(emit)
+                            if emit in redo_sent or not deletions:
+                                # a redo, or speculation, ran under the
+                                # true carry
+                                redo_sent.discard(emit)
+                                deletions = outgoing
+                            elif consulted:
+                                # speculation read an empty carry where
+                                # the true one is not: rerun with it
                                 redo_sent.add(emit)
-                                geno.pop(emit)
                                 pool.req_qs[self.owner[emit]].put(
                                     ("redo", gen, emit, deletions))
                                 break
-                            variants, outgoing = geno.pop(emit)
-                            redo_sent.discard(emit)
-                            deletions = outgoing
+                            else:
+                                # never read: the true carry only
+                                # precedes what the region appended
+                                trace.count("hc.carry_kept")
+                                deletions = deletions + outgoing
                             yield regions[emit], variants, deletions
                             emit += 1
                             progressed = True
@@ -1308,8 +1321,7 @@ class _RegionRun:
                                 self.pend_received[rid] = t_recv
                     self.dispatch_pairhmm(force=self.preps_unconsumed == 0)
                 elif msg[0] == "geno_done":
-                    _, _, rid, variants, outgoing = msg
-                    geno[rid] = (variants, outgoing)
+                    geno[msg[2]] = msg[3:]
             self.check_pairhmm_errors()
         finally:
             if self.ph_pool is not None:

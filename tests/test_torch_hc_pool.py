@@ -1,10 +1,12 @@
 """The port's HaplotypeCaller worker pool (elprep_tpu_torch/hc/parallel.py)
 on the CPU: pooled ``call_variants`` equals the serial run record for
-record (NONE, GVCF, the deletions-carry redo, multi-span BED over two
+record (NONE, GVCF, the deletions carry, multi-span BED over two
 contigs), with the f64 host PairHMM and with the kernel's plain version
 (which the pool dispatches in batches that differ from the serial
-ones); it equals the JAX package's pooled run on the same reads; and a
-spawned worker runs on the CPU with every card hidden."""
+ones); the pool redoes exactly the regions whose serial genotyping read
+a non-empty deletions carry; it equals the JAX package's pooled run on
+the same reads; and a spawned worker runs on the CPU with every card
+hidden."""
 
 import os
 
@@ -19,7 +21,8 @@ from elprep_tpu.hc.refconf import expand_variants as jexpand
 from elprep_tpu.io.vcf import format_variant as jformat
 from elprep_tpu_torch.core.header import Header
 from elprep_tpu_torch.filters.clipping import ClipRead
-from elprep_tpu_torch.hc import driver, parallel
+from elprep_tpu_torch import trace
+from elprep_tpu_torch.hc import driver, genotyping, parallel
 from elprep_tpu_torch.hc.activity import make_hc_params
 from elprep_tpu_torch.hc.refconf import expand_variants
 from elprep_tpu_torch.io.vcf import format_variant
@@ -128,8 +131,9 @@ def _deletion_carry():
 @pytest.mark.parametrize("use_device", [False, True], ids=["host_f64", "plain_kernel"])
 def test_pool_redo_path_on_deletions_carry(on_cpu, monkeypatch, use_device):
     """Tiny regions and a 150 bp het deletion: the serial run carries
-    deletions across regions (checked), so the pooled run must redo the
-    speculative genotyping of that region, and still match exactly."""
+    deletions across regions (checked), but no region reads the carry,
+    so the pooled run keeps every speculative genotype (no redo), and
+    still matches exactly."""
     ref, specs = _deletion_carry()
     hdr = _header([("chr1", len(ref))])
     reads = {"chr1": _reads(specs, b"chr1", b"dd")}
@@ -145,7 +149,169 @@ def test_pool_redo_path_on_deletions_carry(on_cpu, monkeypatch, use_device):
     serial = _call("GVCF", hdr, reads, {"chr1": ref}, 1, use_device, small_regions=True)
     monkeypatch.setattr(driver, "genotype_region", orig)
     assert carried, "fixture no longer exercises the deletions carry"
-    pooled = _call("GVCF", hdr, reads, {"chr1": ref}, 2, use_device, small_regions=True)
+    pooled, _, redos = _pooled_counting_redos(monkeypatch, "GVCF", hdr, reads, {"chr1": ref}, 2,
+                                              use_device, small_regions=True)
+    assert redos == 0
+    assert pooled == serial and serial
+
+
+def _serial_reading_the_carry(monkeypatch, mode, hdr, reads, refs, use_device, **kw):
+    """The serial run's records, its carry after each region, and, per
+    genotyped region, whether its incoming deletions carry was non-empty
+    and whether genotyping read it (called ``is_vc_covered_by_deletion``)."""
+    regions = []
+    carries = []
+    orig_geno = driver.genotype_region
+    orig_read = genotyping.is_vc_covered_by_deletion
+    orig_iter = driver._iter_region_results_serial
+
+    def geno(params, pending, vals, keep, incoming):
+        regions.append({"carried": bool(incoming), "read": False})
+        return orig_geno(params, pending, vals, keep, incoming)
+
+    def read(deletions, vc):
+        regions[-1]["read"] = True
+        return orig_read(deletions, vc)
+
+    def results(*a, **k):
+        for item in orig_iter(*a, **k):
+            carries.append(list(item[2]))
+            yield item
+
+    monkeypatch.setattr(driver, "genotype_region", geno)
+    monkeypatch.setattr(genotyping, "is_vc_covered_by_deletion", read)
+    monkeypatch.setattr(driver, "_iter_region_results_serial", results)
+    try:
+        return _call(mode, hdr, reads, refs, 1, use_device, **kw), carries, regions
+    finally:
+        monkeypatch.setattr(driver, "genotype_region", orig_geno)
+        monkeypatch.setattr(genotyping, "is_vc_covered_by_deletion", orig_read)
+        monkeypatch.setattr(driver, "_iter_region_results_serial", orig_iter)
+
+
+def _pooled_counting_redos(monkeypatch, mode, hdr, reads, refs, nw, use_device, **kw):
+    """The pooled run's records, its carry after each region, and the
+    number of ``redo`` messages the main process sent to the workers."""
+    pool = parallel.get_pool(nw)
+    sent = []
+    carries = []
+    orig_results = parallel._RegionRun.results
+
+    def results(self, *a, **k):
+        for item in orig_results(self, *a, **k):
+            carries.append(list(item[2]))
+            yield item
+
+    monkeypatch.setattr(parallel._RegionRun, "results", results)
+    for q in pool.req_qs:
+        def put(msg, *a, _put=q.put, **k):
+            sent.append(msg[0])
+            return _put(msg, *a, **k)
+
+        monkeypatch.setattr(q, "put", put)
+    try:
+        return _call(mode, hdr, reads, refs, nw, use_device, **kw), carries, sent.count("redo")
+    finally:
+        for q in pool.req_qs:
+            monkeypatch.delattr(q, "put")
+        monkeypatch.setattr(parallel._RegionRun, "results", orig_results)
+
+
+def _carried_span_del(upstream):
+    """_two_clusters' 200 bp deletion with the SNP inside its span (a
+    ``*`` allele is judged there), with an upstream cluster in front of
+    it instead of the second SNP cluster: a SNP (``snp``; in GVCF its
+    ``<NON_REF>`` site enters the carry) or a 30 bp deletion (``del``;
+    in every mode). The deletion's region reads a non-empty carry."""
+    rng = np.random.RandomState(17)
+    ref = _mkref(rng, 6000)
+    hap_del = ref[:2000] + ref[2200:]
+    sub = b"A" if ref[2104:2105] != b"A" else b"C"
+    hap_snp = ref[:2104] + sub + ref[2105:]
+    if upstream == "snp":
+        alt = b"G" if ref[700:701] != b"G" else b"T"
+        hap_up = ref[:700] + alt + ref[701:]
+    else:
+        hap_up = ref[:700] + ref[730:]
+    specs = []
+    for i in range(160):
+        k = i % 4
+        hap = (hap_del, hap_snp, hap_up, ref)[k]
+        start = (1800 + (i * 13) % 500) if k < 2 else (550 + (i * 11) % 250)
+        specs.append((i, hap, start))
+    return ref, specs
+
+
+@pytest.mark.parametrize("use_device", [False, True], ids=["host_f64", "plain_kernel"])
+@pytest.mark.parametrize("upstream", ["snp", "del"])
+def test_pool_redoes_a_region_that_read_the_carry(on_cpu, monkeypatch, upstream, use_device):
+    """A ``*`` allele judged under a non-empty carry: the serial run reads
+    it (checked), so the pooled run sends that region back to be redone
+    under the true carry; its carry after each region and its records
+    match the serial run's. Traced, a worker records each redo as a
+    ``worker.redo`` span."""
+    ref, specs = _carried_span_del(upstream)
+    hdr = _header([("chr1", len(ref))])
+    reads = {"chr1": _reads(specs, b"chr1", b"up")}
+    serial, serial_carries, regions = _serial_reading_the_carry(
+        monkeypatch, "GVCF", hdr, reads, {"chr1": ref}, use_device)
+    read_carried = sum(r["carried"] and r["read"] for r in regions)
+    assert read_carried >= 1, "fixture no longer reads a non-empty carry"
+    trace.clear()
+    trace.enable("redo")
+    try:
+        pooled, carries, redos = _pooled_counting_redos(monkeypatch, "GVCF", hdr, reads,
+                                                        {"chr1": ref}, 2, use_device)
+    finally:
+        trace.disable()
+        snap = trace.snapshot()
+        trace.clear()
+    assert redos == read_carried
+    done = [s for s in snap["spans"] if s["name"] == "worker.redo"]
+    assert len(done) == redos and all(s["proc"] == "worker" for s in done)
+    assert carries == serial_carries
+    assert pooled == serial and serial
+
+
+def _fixture_call(name):
+    """(hdr, reads, refs, call kwargs, workers) of a fixture by name."""
+    if name == "multispan":
+        refs, reads, bed = _multispan()
+        hdr = _header([(c, len(r)) for c, r in refs.items()])
+        return hdr, reads, refs, {"small_regions": True, "bed": bed}, 3
+    if name == "two_clusters":
+        ref, specs = _two_clusters()
+        prefix = b"pp"
+    else:
+        ref, specs = _carried_span_del("del")
+        prefix = b"up"
+    hdr = _header([("chr1", len(ref))])
+    return hdr, {"chr1": _reads(specs, b"chr1", prefix)}, {"chr1": ref}, {}, 2
+
+
+@pytest.mark.parametrize("mode,name", [("GVCF", "two_clusters"), ("GVCF", "multispan"),
+                                       ("NONE", "two_clusters"), ("NONE", "upstream_del")])
+def test_pool_redoes_only_regions_that_read_a_carry(on_cpu, monkeypatch, mode, name):
+    """The pooled run redoes exactly the regions whose serial genotyping
+    read a non-empty carry, and its carry after each region is the serial
+    run's. In GVCF every called site enters the carry,
+    so _two_clusters' second cluster meets a carry that it never reads:
+    kept, where the pool once redid every region under a non-empty
+    carry. In NONE a SNP enters nothing: the redos are those of that old
+    rule (one, for the deletion's ``*`` allele, in upstream_del)."""
+    hdr, reads, refs, kw, nw = _fixture_call(name)
+    serial, serial_carries, regions = _serial_reading_the_carry(
+        monkeypatch, mode, hdr, reads, refs, False, **kw)
+    read_carried = sum(r["carried"] and r["read"] for r in regions)
+    carried = sum(r["carried"] for r in regions)
+    pooled, carries, redos = _pooled_counting_redos(monkeypatch, mode, hdr, reads, refs, nw,
+                                                    False, **kw)
+    assert redos == read_carried
+    assert carries == serial_carries
+    if mode == "NONE":
+        assert redos == carried
+    elif name == "two_clusters":
+        assert carried >= 1 and redos == 0
     assert pooled == serial and serial
 
 
