@@ -48,10 +48,14 @@ def numbers(exp: judge.Expected, rc: bqsr.Recalibration) -> dict:
             "qual_mismatches": sum(a != b for a, b in zip(quals, exp.quals))}
 
 
-def run_controls(cfg: dict, seed: int, workdir: str) -> dict:
+def run_controls(cfg: dict, seed: int, workdir: str, with_targets: bool = False) -> dict:
+    """The controls' numbers on ``cfg``'s inputs for ``seed``; with
+    ``with_targets``, over the reads that its target BED keeps, as a
+    cell whose traffic passes ``--target-regions``."""
     fx = fixture.make_fixture(cfg, seed)
     paths = fixture.write_inputs(fx, workdir, "input")
-    exp = judge.Expected(paths, ["bam", "metrics", "recal"], [])
+    exp = judge.Expected(paths, ["bam", "metrics", "recal"], [],
+                         paths["targets"] if with_targets else None)
     known = records.read_known_sites(paths["bed"])
     out = {}
     for name in CONTROLS:
@@ -76,7 +80,8 @@ def main(argv=None) -> int:
     work = tempfile.mkdtemp(prefix="gpubench-control-", dir=os.environ.get("TMPDIR") or None)
     try:
         for seed in args.seeds:
-            for name, got in run_controls(cell.config, seed, work).items():
+            with_targets = "--target-regions" in cell.traffic["command"]
+            for name, got in run_controls(cell.config, seed, work, with_targets).items():
                 print(json.dumps({"workload": args.workload, "seed": seed, "control": name,
                                   "numbers": got}), flush=True)
     finally:

@@ -11,7 +11,10 @@ FAULT is one of
 - ``gvcf_half``: every second chunk of GVCF records never reaches the file;
 - ``genotype_flipped``: every heterozygous call is written homozygous;
 - ``hets_uncalled``: every heterozygous call is written 0/0, as a caller
-  that misses heterozygous sites would.
+  that misses heterozygous sites would;
+- ``targets_ignored``: ``--target-regions`` removes no read, as a
+  pipeline that skipped the filter would (a cell whose traffic passes
+  it; the HaplotypeCaller still calls only the targets).
 A one-card cell has no exchange between chips to leave out. The same
 planters serve the CPU tests (tests/test_gpubench_faults.py)."""
 
@@ -93,12 +96,17 @@ def plant(stack: contextlib.ExitStack, fault: str) -> None:
                 yield chunk.replace(b"\t0/1:", b"\t0/0:")
 
         _patch(stack, vcf, "iter_variant_bytes", uncalled)
+    elif fault == "targets_ignored":
+        from elprep_tpu_torch.filters import simple
+
+        _patch(stack, simple, "remove_non_overlapping_reads",
+               lambda bed: (lambda header: (lambda batch: np.ones(len(batch), bool))))
     else:
         raise ValueError("unknown fault %r" % fault)
 
 
 FAULTS = ("state_unchanged", "half_left_out", "dup_flipped", "gvcf_half", "genotype_flipped",
-          "hets_uncalled")
+          "hets_uncalled", "targets_ignored")
 
 
 def main(argv=None) -> int:

@@ -11,11 +11,17 @@ diploid (a planted SNP is heterozygous on one haplotype or homozygous),
 and a soft-clipped first mate is placed where its bases came from instead
 of one clip length off (the fault that ``realign_soft_clips`` repaired).
 
-The genome, the variants and the sampled reads come from the
-configuration's own ``world_seed``, so that every seed gives the same
-work; ``--seed`` draws the reads' order in the SAM and their Illumina
-names (tiles and pixel coordinates), and with them which copy of a
-duplicate set wins. The same seed gives the same bytes.
+A configuration with ``target_length``, ``target_gap`` and
+``on_target_share`` describes a capture design (an exome): target
+intervals along each contig, written as a BED, and that share of the
+pairs drawn onto them; ``depth`` is then the mean coverage over the
+targets. Without those keys nothing of the above changes, byte for byte.
+
+The genome, the variants, the targets and the sampled reads come from
+the configuration's own ``world_seed``, so that every seed gives the
+same work; ``--seed`` draws the reads' order in the SAM and their
+Illumina names (tiles and pixel coordinates), and with them which copy
+of a duplicate set wins. The same seed gives the same bytes.
 """
 
 from __future__ import annotations
@@ -38,7 +44,9 @@ class Fixture:
     array), the planted SNPs as (contig, 0-based position, alt base,
     haplotypes carrying it: 1 = first, 2 = second, 3 = both), the
     hypervariable stretches (contig, first, last 0-based position), the
-    known sites (contig, 0-based position) and the read pairs as columns."""
+    known sites (contig, 0-based position), the read pairs as columns
+    and the capture targets (contig, start, end: BED's 0-based half-open
+    interval; none without a capture design)."""
 
     contigs: List[Tuple[str, int]]
     ref: Dict[str, np.ndarray]
@@ -46,6 +54,7 @@ class Fixture:
     stretches: List[Tuple[str, int, int]]
     known: List[Tuple[str, int]]
     pairs: Dict[str, np.ndarray] = field(default_factory=dict)
+    targets: List[Tuple[str, int, int]] = field(default_factory=list)
 
     @property
     def n_reads(self) -> int:
@@ -125,8 +134,83 @@ def plant_variants(cfg: dict, ref: Dict[str, np.ndarray], seed: int):
     return haps, snps, stretches
 
 
+def place_targets(cfg: dict, world: int) -> List[Tuple[str, int, int]]:
+    """Capture targets along each contig: lengths uniform in
+    ``target_length``, gaps uniform in ``target_gap`` (before the first
+    one too), kept 3 x read length + 100 bases from either end of the
+    contig, so that every pair drawn onto one fits on the contig.
+    Sorted, apart from each other by at least the smallest gap."""
+    rng = _rng(world, 8)
+    lo_l, hi_l = cfg["target_length"]
+    lo_g, hi_g = cfg["target_gap"]
+    margin = 3 * int(cfg["read_length"]) + 100
+    out = []
+    for name, ln in cfg["contigs"]:
+        at = margin + int(rng.integers(lo_g, hi_g + 1))
+        while True:
+            end = at + int(rng.integers(lo_l, hi_l + 1))
+            if end > ln - margin:
+                break
+            out.append((name, at, end))
+            at = end + int(rng.integers(lo_g, hi_g + 1))
+    return out
+
+
+def _on_target(rng, cfg: dict, targets, isize, clip):
+    """(contig index, 1-based first-mate position) of pairs drawn onto
+    the targets: a target base uniform over all target bases, and the
+    pair placed so that one of its reads' aligned bases covers it (the
+    first mate's after its clip, or the second mate's), uniformly."""
+    rl = int(cfg["read_length"])
+    index = {name: k for k, (name, _) in enumerate(cfg["contigs"])}
+    t_ci = np.array([index[c] for c, _, _ in targets], np.int64)
+    t_lo = np.array([s for _, s, _ in targets], np.int64)
+    t_len = np.array([e - s for _, s, e in targets], np.int64)
+    ends = np.cumsum(t_len)
+    flat = rng.integers(0, ends[-1], len(isize))
+    t = np.searchsorted(ends, flat, side="right")
+    base = t_lo[t] + flat - (ends[t] - t_len[t]) + 1  # 1-based
+    u = clip + (rng.random(len(isize)) * (2 * rl - clip)).astype(np.int64)
+    # place_targets' margin keeps every such pair on its contig
+    return t_ci[t], np.where(u < rl, base - u, base - (u - rl) - isize + rl)
+
+
+def _target_bases(cfg: dict, targets, ci, pos, isize, clip) -> np.ndarray:
+    """Each pair's aligned read bases that fall inside a target."""
+    rl = int(cfg["read_length"])
+    cum = {}
+    for k, (name, ln) in enumerate(cfg["contigs"]):
+        mask = np.zeros(ln + 1, np.int64)  # 1-based positions
+        for c, s, e in targets:
+            if c == name:
+                mask[s + 1 : e + 1] = 1
+        cum[k] = np.cumsum(mask)
+    out = np.zeros(len(ci), np.int64)
+    mpos = pos + isize - rl
+    for k, cs in cum.items():
+        at = ci == k
+        for a, b in ((pos[at] + clip[at], pos[at] + rl - 1), (mpos[at], mpos[at] + rl - 1)):
+            out[at] += cs[b] - cs[a - 1]
+    return out
+
+
+def capture_pairs(cfg: dict, targets, world: int) -> int:
+    """The pairs of a capture design: enough drawn onto the targets for
+    ``depth`` over the target bases, and those an ``on_target_share`` of
+    all. The read bases that a pair drawn onto the targets lays on them
+    are averaged over a calibration draw of 20 000 pairs."""
+    rng = _rng(world, 10)
+    rl, n = int(cfg["read_length"]), 20000
+    isize = rng.integers(rl + 20, 2 * rl + 100, n)
+    clip = np.where(rng.random(n) < 0.25, 5, 0)
+    ci, pos = _on_target(rng, cfg, targets, isize, clip)
+    per_pair = _target_bases(cfg, targets, ci, pos, isize, clip).mean()
+    on = int(round(cfg["depth"] * sum(e - s for _, s, e in targets) / per_pair))
+    return int(round(on / cfg["on_target_share"]))
+
+
 def sample_pairs(cfg: dict, haps: Dict[str, np.ndarray], world: int,
-                 seed: int) -> Dict[str, np.ndarray]:
+                 seed: int, targets=()) -> Dict[str, np.ndarray]:
     """``depth`` x genome / read length reads in pairs, each pair from one
     haplotype at a uniform position (contigs by length), insert sizes
     uniform in [read length + 20, 2 x read length + 100), one in four
@@ -135,14 +219,19 @@ def sample_pairs(cfg: dict, haps: Dict[str, np.ndarray], world: int,
     on three reads in ten at each end, MAPQ uniform in 1-59 (samgen's
     distributions). Then ``dup_share`` of the pairs are duplicates:
     copies of sampled pairs, an ``optical_share`` of them on their
-    original's tile within 80 pixels. All of that comes from ``world``;
-    the names and the order of the pairs come from ``seed``. Returns
-    columns, pairs in the seed's order."""
+    original's tile within 80 pixels. With ``targets``, the number of
+    pairs is ``capture_pairs``'s and an ``on_target_share`` of the
+    originals are drawn onto the targets (``_on_target``) instead. All
+    of that comes from ``world``; the names and the order of the pairs
+    come from ``seed``. Returns columns, pairs in the seed's order."""
     rng = _rng(world, 3)
     rl = int(cfg["read_length"])
     contigs = cfg["contigs"]
     total = sum(ln for _, ln in contigs)
-    n_pairs = int(round(cfg["depth"] * total / rl / 2))
+    if targets:
+        n_pairs = capture_pairs(cfg, targets, world)
+    else:
+        n_pairs = int(round(cfg["depth"] * total / rl / 2))
     n_dup = int(round(cfg["dup_share"] * n_pairs))
     n_orig = n_pairs - n_dup
 
@@ -151,8 +240,13 @@ def sample_pairs(cfg: dict, haps: Dict[str, np.ndarray], world: int,
     pos = (rng.random(n_orig) * (lens[ci] - 3 * rl - 1)).astype(np.int64) + 1  # 1-based
     hap = rng.integers(0, 2, n_orig)
     isize = rng.integers(rl + 20, 2 * rl + 100, n_orig)
-    mpos = pos + isize - rl
     clip = np.where(rng.random(n_orig) < 0.25, 5, 0)
+    if targets:
+        n_on = int(round(cfg["on_target_share"] * n_orig))
+        ci, pos = ci.copy(), pos.copy()
+        ci[:n_on], pos[:n_on] = _on_target(_rng(world, 9), cfg, targets, isize[:n_on],
+                                           clip[:n_on])
+    mpos = pos + isize - rl
 
     offs = np.concatenate([[0], np.cumsum(lens)])
     flat = np.concatenate([haps[name] for name, _ in contigs], axis=1)  # [2, total]
@@ -221,7 +315,11 @@ def make_fixture(cfg: dict, seed: int) -> Fixture:
     haps, snps, stretches = plant_variants(cfg, ref, world)
     rng = _rng(world, 4)
     known = [(c, p) for c, p, _, _ in snps if rng.random() < cfg["known_share"]]
-    return Fixture(contigs, ref, snps, stretches, known, sample_pairs(cfg, haps, world, seed))
+    targets = place_targets(cfg, world) if "on_target_share" in cfg else []
+    if "on_target_share" in cfg and not targets:
+        raise ValueError("the contigs are too short to hold a target")
+    return Fixture(contigs, ref, snps, stretches, known,
+                   sample_pairs(cfg, haps, world, seed, targets), targets)
 
 
 def sam_lines(fx: Fixture, rows=None) -> List[str]:
@@ -259,9 +357,14 @@ def header_lines(fx: Fixture) -> List[str]:
 
 def write_inputs(fx: Fixture, workdir: str, tag: str, rows=None) -> Dict[str, str]:
     """FASTA, known-sites BED and SAM (the pairs ``rows``, all by default)
-    under ``workdir``. Returns their paths."""
+    under ``workdir``, and the capture targets as a BED where there are
+    any. Returns their paths (the targets' under ``targets``)."""
     os.makedirs(workdir, exist_ok=True)
     paths = {k: os.path.join(workdir, "%s.%s" % (tag, k)) for k in ("fasta", "bed", "sam")}
+    if fx.targets:
+        paths["targets"] = os.path.join(workdir, tag + ".targets.bed")
+        with open(paths["targets"], "w") as fh:
+            fh.writelines("%s\t%d\t%d\n" % t for t in fx.targets)
     with open(paths["fasta"], "w") as fh:
         for name, _ in fx.contigs:
             s = fx.ref[name].tobytes().decode()

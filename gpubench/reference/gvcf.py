@@ -14,7 +14,8 @@ share has a limit of its own, set from readings."""
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+import bisect
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -81,17 +82,30 @@ def expected_genotype(counts: np.ndarray, ref_base: int) -> Tuple[str, int]:
 
 def check(records: List[List[str]], contigs: List[Tuple[str, int]],
           genome: Dict[str, np.ndarray], counts: Dict[str, np.ndarray],
-          planted: List[Tuple[str, int]], notes: list = None) -> Dict[str, int]:
-    """The GVCF's numbers: positions left out or covered out of order
-    (tiling); records whose REF does not start with the reference's base;
-    and the share of the judged sites (each planted SNP where the reads
-    clearly show a variant, and each call where the reads are clear) at
-    which the GVCF does not give the genotype and allele the reads show.
-    Each such site is described in ``notes``, where given."""
+          planted: List[Tuple[str, int]], notes: list = None,
+          spans: Optional[Dict[str, List[Tuple[int, int]]]] = None) -> Dict[str, int]:
+    """The GVCF's numbers: positions of a calling span left out or
+    covered out of order, and records outside every span (tiling);
+    records whose REF does not start with the reference's base; and the
+    share of the judged sites (each planted SNP where the reads clearly
+    show a variant, and each call where the reads are clear) at which
+    the GVCF does not give the genotype and allele the reads show. The
+    calling spans are ``spans`` ({contig: [(first, last)]}, 1-based and
+    sorted), or every contig whole; only sites inside them are judged.
+    Each site judged wrong is described in ``notes``, where given."""
+    if spans is None:
+        spans = {c: [(1, n)] for c, n in contigs}
     order = {c: k for k, (c, _) in enumerate(contigs)}
+    firsts = {c: [lo for lo, _ in spans.get(c, [])] for c, _ in contigs}
+
+    def span_at(c, pos):  # the index of the span that holds a 1-based position, or -1
+        k = bisect.bisect_right(firsts.get(c, []), pos) - 1
+        return k if k >= 0 and pos <= spans[c][k][1] else -1
+
     tiling = ref_bad = 0
     calls: Dict[Tuple[str, int], Tuple[str, str, str]] = {}
-    covered = {c: 0 for c, _ in contigs}
+    # per span, the last position covered so far
+    covered = {c: [lo - 1 for lo, _ in spans.get(c, [])] for c, _ in contigs}
     last = (-1, 0)
     for f in records:
         c, pos, ref, alt = f[0], int(f[1]), f[3], f[4]
@@ -105,9 +119,13 @@ def check(records: List[List[str]], contigs: List[Tuple[str, int]],
         for kv in f[7].split(";"):
             if kv.startswith("END="):
                 end = int(kv[4:])
-        if pos > covered[c] + 1:
+        k = span_at(c, pos)
+        if k < 0:
+            tiling += 1  # outside every calling span
+            continue
+        if pos > covered[c][k] + 1:
             tiling += 1
-        covered[c] = max(covered[c], end)
+        covered[c][k] = max(covered[c][k], end)
         g = genome[c]
         if not 1 <= pos <= len(g) or ref[:1].upper() != chr(g[pos - 1]):
             ref_bad += 1
@@ -115,10 +133,10 @@ def check(records: List[List[str]], contigs: List[Tuple[str, int]],
         alts = [a for a in alt.split(",") if a != "<NON_REF>"]
         if alts and gt not in ("0/0", "./."):
             calls[(c, pos - 1)] = (gt, ref, alts[int(max(gt.split("/"))) - 1])
-    tiling += sum(covered[c] != n for c, n in contigs)
+    tiling += sum(cov != hi for c in covered for cov, (_, hi) in zip(covered[c], spans.get(c, [])))
     # the sites judged: each planted SNP where the reads clearly show a
     # variant, and each call where the reads are clear
-    planted_set = set(planted)
+    planted_set = {(c, p) for c, p in planted if span_at(c, p + 1) >= 0}
     judged = bad = 0
     for c, p in sorted(set(calls) | planted_set):
         want, wbase = expected_genotype(counts[c][p], int(genome[c][p]))

@@ -9,9 +9,9 @@ from __future__ import annotations
 
 import math
 import os
-from typing import Dict, List
+from typing import Dict, List, Optional
 
-from . import bqsr, gvcf, markdup, records
+from . import bqsr, gvcf, markdup, records, targets
 
 # every number compared; its limit is 0 unless the configuration names another
 NUMBERS = ("records_unmatched", "records_altered", "dup_flag_mismatches", "order_mismatches",
@@ -29,22 +29,43 @@ class Expected:
     """The reference's answers for one cell's inputs. ``paths`` holds the
     benchmark's own ``fasta``, ``bed`` and ``sam``; ``outputs`` names the
     files a job writes (``bam``, ``metrics``, ``recal``, ``gvcf``);
-    ``planted`` the planted SNPs as (contig, 0-based position)."""
+    ``planted`` the planted SNPs as (contig, 0-based position);
+    ``target_regions`` the BED that a job passes to ``--target-regions``,
+    or None.
 
-    def __init__(self, paths: Dict[str, str], outputs: List[str], planted: List[tuple]):
+    With target regions, where the port and the JAX package apply
+    elPrep's filter: duplicates and their metrics over every read, then
+    the reads that overlap no target left out (reference/targets.py)
+    before BQSR, so that the records written, their order, the BQSR
+    tables and qualities and the pileup are those of the kept reads;
+    the GVCF covers the calling spans (``spans``, None for whole
+    contigs)."""
+
+    def __init__(self, paths: Dict[str, str], outputs: List[str], planted: List[tuple],
+                 target_regions: Optional[str] = None):
         self.outputs = outputs
-        self.header, self.reads = records.read_sam(paths["sam"])
-        r = self.reads
+        self.header, r = records.read_sam(paths["sam"])
         self.contigs = []
         for ln in self.header:
             if ln.startswith("@SQ"):
                 d = dict(f.split(":", 1) for f in ln.split("\t")[1:])
                 self.contigs.append((d["SN"], int(d["LN"])))
-        self.index = {r.identity(i): i for i in range(len(r))}
         alns = markdup.alignments(self.header, r)
-        self.dup, groups = markdup.mark_duplicates(alns)
-        self.order = [r.identity(i) for i in markdup.coordinate_order(alns)]
-        self.metrics = markdup.duplication_metrics(alns, self.dup, groups)
+        dup, groups = markdup.mark_duplicates(alns)
+        self.metrics = markdup.duplication_metrics(alns, dup, groups)
+        order = markdup.coordinate_order(alns)
+        self.spans = None
+        if target_regions:
+            bed = targets.read_bed(target_regions)
+            keep = targets.kept(r, bed)
+            self.spans = targets.spans(bed)
+            self.order = [r.identity(i) for i in order if keep[i]]
+            rows = [i for i in range(len(r)) if keep[i]]
+            r, dup = r.select(rows), [dup[i] for i in rows]
+        else:
+            self.order = [r.identity(i) for i in order]
+        self.reads, self.dup = r, dup
+        self.index = {r.identity(i): i for i in range(len(r))}
         self.genome = records.read_fasta(paths["fasta"])
         self.quals = list(r.qual)
         if "recal" in outputs:
@@ -127,7 +148,8 @@ def judge(exp: Expected, out: Dict[str, str], notes: list = None) -> Dict[str, i
                                                          records.read_recal_report(out["recal"]))
     if "gvcf" in exp.outputs:
         _, recs = records.read_gvcf(out["gvcf"])
-        n.update(gvcf.check(recs, exp.contigs, exp.genome, exp.counts, exp.planted, notes))
+        n.update(gvcf.check(recs, exp.contigs, exp.genome, exp.counts, exp.planted, notes,
+                            exp.spans))
     return n
 
 

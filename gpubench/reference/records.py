@@ -39,6 +39,13 @@ class Reads:
         """(qname, first/second/neither) names a record uniquely here."""
         return self.qname[i], self.flag[i] & 0xC0
 
+    def select(self, rows: List[int]) -> "Reads":
+        """The records ``rows``, in that order."""
+        out = Reads()
+        for k, col in vars(self).items():
+            setattr(out, k, [col[i] for i in rows])
+        return out
+
 
 def parse_cigar(text: str) -> List[Tuple[int, str]]:
     if text == "*":

@@ -176,6 +176,17 @@ def job_argv(traffic: dict, paths: dict, timed: bool) -> list:
     return argv + (["--timed"] if timed else [])
 
 
+def target_regions(argv):
+    """The BED that a job's command line passes to ``--target-regions``,
+    or None."""
+    for k, a in enumerate(argv):
+        if a.startswith("--target-regions="):
+            return a.split("=", 1)[1]
+        if a == "--target-regions" and k + 1 < len(argv):
+            return argv[k + 1]
+    return None
+
+
 def run_job(cli, argv) -> int:
     """One job: ``elprep_tpu_torch.cli.main(argv)``; what it prints goes to
     standard error, so that the result stays the last line of output."""
@@ -415,7 +426,8 @@ def main(argv=None, require_cuda: bool = True, device: str = "cuda", bench_root:
 
         # correctness: the reference once, then the jobs' outputs
         t = time.perf_counter()
-        exp = judge.Expected(paths, kinds, [(c, p_) for c, p_, _, _ in fx.snps])
+        exp = judge.Expected(paths, kinds, [(c, p_) for c, p_, _, _ in fx.snps],
+                             target_regions(job_argv(traffic, warm, False)))
         failed = [j for j in jobs if j["rc"] != 0]
         ok = [j for j in jobs if j["rc"] == 0]
         numbers = {n: 0 for n in limits_for(cell)}

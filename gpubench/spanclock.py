@@ -1,5 +1,5 @@
 """The program's clock mapped onto a torch.profiler trace's device
-timeline, by brackets.
+timeline, by brackets, once per job.
 
 The span recorder (elprep_tpu_torch/trace.py) stamps spans with
 ``time.perf_counter_ns()``; the profiler's chrome trace stamps device
@@ -18,12 +18,18 @@ counts, gives no fit. The rate is 1 unless the brackets of the first and
 the last third of the pairs disagree by more than the width: then the
 rate that leaves the widest intersection is fitted too (the two clocks
 may run at slightly different rates over a long window).
+
+The fit is made per job (:func:`job_fits`): the profiler's clock has
+been seen to move against the program's for a few consecutive kernels
+mid-window, which empties a single bracket over the whole window; a
+job's own bracket holds wherever the move falls between jobs, and a job
+whose bracket is empty is left out alone.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 
 @dataclass
@@ -96,14 +102,29 @@ def fit(spans: Sequence[Tuple[int, int, int]],
     return Fit(offset_us=(lo + hi) / 2, rate=rate, x0_us=x0, width_us=hi - lo)
 
 
-def pairhmm_fit(records, ops) -> Optional[Fit]:
-    """The fit from the records' ``pairhmm.device`` spans (all of them:
-    the traced window holds every job that made one) and the trace's
-    PairHMM kernels."""
-    spans = [(s["start"], s["end"], (s["attrs"] or {}).get("launches", 1))
-             for s in records.all_spans if s["name"] == "pairhmm.device"]
-    kernels = [(ts, d) for name, cat, ts, d in ops if cat == "kernel" and "pairhmm" in name]
-    return fit(spans, kernels)
+def job_fits(records, ops) -> Dict[object, Fit]:
+    """{job: fit} from the records' ``pairhmm.device`` spans (all of
+    them: the traced window holds every job that made one) and the
+    trace's PairHMM kernels. Jobs run one after another, so the kernels,
+    in order, split among the jobs by each one's launches; each job's
+    spans are fitted to its own kernels. Unequal counts in all give no
+    fit; a job whose own bracket is empty is left out."""
+    by_job: Dict[object, list] = {}
+    for s in sorted((s for s in records.all_spans if s["name"] == "pairhmm.device"),
+                    key=lambda s: s["start"]):
+        by_job.setdefault(s["job"], []).append(
+            (s["start"], s["end"], int((s["attrs"] or {}).get("launches", 1))))
+    kernels = sorted((ts, d) for name, cat, ts, d in ops if cat == "kernel" and "pairhmm" in name)
+    if sum(k for sp in by_job.values() for _, _, k in sp) != len(kernels):
+        return {}
+    out, at = {}, 0
+    for job, sp in by_job.items():
+        n = sum(k for _, _, k in sp)
+        f = fit(sp, kernels[at : at + n])
+        at += n
+        if f is not None:
+            out[job] = f
+    return out
 
 
 def total(ivals: List[Tuple[float, float]]) -> float:

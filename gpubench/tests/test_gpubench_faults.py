@@ -12,6 +12,12 @@ import pytest
 import tiny
 
 
+# the window of a test run: a job of the 5-step cells takes 1-6 s on a
+# loaded CPU here, and a window that ends before the first job does
+# judges nothing
+WINDOW = 20
+
+
 @pytest.fixture(scope="module")
 def root(tmp_path_factory):
     return tiny.make_root(str(tmp_path_factory.mktemp("bench")))
@@ -27,11 +33,13 @@ def _over(res):
     return sorted(n for n, c in res["checks"].items() if c["value"] > c["limit"])
 
 
-@pytest.mark.parametrize("cell", ["wgs50x.prep", "wgs50x.5step"])
+@pytest.mark.parametrize("cell", ["wgs50x.prep", "wgs50x.5step", "capture.5step"])
 def test_sound_run_is_correct(root, cell):
-    res = _run(root, cell, seconds=6)
+    res = _run(root, cell, seconds=WINDOW)
     assert res["correct"], res["checks"]
     assert res["attempted"] >= 1 and res["failed"] == 0
+    # every exact number at 0 (gvcf_discordant_pct has a limit of its own)
+    assert not [n for n, c in res["checks"].items() if c["limit"] == 0 and c["value"] != 0]
 
 
 @pytest.mark.parametrize("fault,cell,number", [
@@ -41,6 +49,7 @@ def test_sound_run_is_correct(root, cell):
     ("gvcf_half", "wgs50x.5step", "gvcf_tiling_errors"),
     ("genotype_flipped", "wgs50x.5step", "gvcf_discordant_pct"),
     ("hets_uncalled", "wgs50x.5step", "gvcf_discordant_pct"),
+    ("targets_ignored", "capture.5step", "records_unmatched"),
 ])
 def test_fault_is_not_correct(root, fault, cell, number):
     import contextlib
@@ -49,7 +58,7 @@ def test_fault_is_not_correct(root, fault, cell, number):
 
     with contextlib.ExitStack() as stack:
         faults.plant(stack, fault)
-        res = _run(root, cell, seconds=6)
+        res = _run(root, cell, seconds=WINDOW)
     assert not res["correct"] and number in _over(res), res["checks"]
 
 

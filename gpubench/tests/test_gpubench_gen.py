@@ -73,3 +73,82 @@ def test_read_count_follows_depth():
     fx = fixture.make_fixture(cfg, 3)
     total = sum(ln for _, ln in cfg["contigs"])
     assert abs(fx.n_reads * cfg["read_length"] / total - cfg["depth"]) < 0.1
+
+
+# sha256 of the FASTA, known-sites BED and SAM that the parent of the
+# capture keys generated for wgs50x.5step's configuration at two seeds
+WGS_DIGESTS = {
+    2147483659: ("bc6f4ba104be0fef4e5a3ddc03ff11f02ff20021e0cac261792243c88ab9c3ea",
+                 "8d55bfb3099d1799a85fb5c439bd20f92779d1b3d7fe989adb3bc75e342e6f2a",
+                 "01f2f0162916bd0af088b4c8755cab23b116b488f0db6b6e2abce30fb81a17a0"),
+    7: ("bc6f4ba104be0fef4e5a3ddc03ff11f02ff20021e0cac261792243c88ab9c3ea",
+        "8d55bfb3099d1799a85fb5c439bd20f92779d1b3d7fe989adb3bc75e342e6f2a",
+        "615eedf9d3d9c1deeefdf742b9df6f210cc5c029ab34c4637241c990bf193429"),
+}
+
+
+def test_wgs_inputs_are_byte_identical(tmp_path):
+    """A configuration without the capture keys generates what it did."""
+    import hashlib
+
+    cfg = _cfg("platinum_wgs50x_2x101")
+    for seed, want in WGS_DIGESTS.items():
+        fx = fixture.make_fixture(cfg, seed)
+        assert not fx.targets
+        paths = fixture.write_inputs(fx, str(tmp_path / str(seed)), "input")
+        assert "targets" not in paths
+        got = tuple(hashlib.sha256(open(paths[k], "rb").read()).hexdigest()
+                    for k in ("fasta", "bed", "sam"))
+        assert got == want, seed
+
+
+def _capture(**cut):
+    with open(os.path.join(tiny.HERE, "configs", "capture_test.json")) as fh:
+        cfg = json.load(fh)
+    cfg.update(cut)
+    return cfg
+
+
+def test_capture_targets_and_on_target_share(tmp_path):
+    """The target BED is sorted, apart and within its ranges; the pairs
+    with a read on a target are the on-target share, give or take the
+    uniform pairs that land on one by chance; the target bases are
+    covered at ``depth``, 3 % below to 10 % above (the uniform pairs'
+    share); another seed, the same targets and work."""
+    import numpy as np
+
+    from reference import records, targets
+
+    cfg = _capture(contigs=[["chr1", 60000], ["chr2", 40000]], target_gap=[1500, 4500])
+    fx = fixture.make_fixture(cfg, 2**31 + 5)
+    paths = fixture.write_inputs(fx, str(tmp_path), "x")
+    rl, (lo_l, hi_l), (lo_g, hi_g) = cfg["read_length"], cfg["target_length"], cfg["target_gap"]
+    lengths = dict(cfg["contigs"])
+    with open(paths["targets"]) as fh:
+        rows = [ln.split("\t") for ln in fh.read().splitlines()]
+    assert [(c, int(s), int(e)) for c, s, e in rows] == fx.targets and len(fx.targets) > 20
+    for (c1, s1, e1), (c2, s2, e2) in zip(fx.targets, fx.targets[1:]):
+        assert c1 != c2 or lo_g <= s2 - e1 <= hi_g
+    for c, s, e in fx.targets:
+        assert lo_l <= e - s <= hi_l and 3 * rl + 100 < s and e <= lengths[c] - 3 * rl - 100
+    bed = targets.read_bed(paths["targets"])
+    assert sum(len(v) for v in bed.values()) == len(fx.targets)  # nothing to flatten
+
+    _, r = records.read_sam(paths["sam"])
+    on = {}
+    for i, k in enumerate(targets.kept(r, bed)):
+        on[r.qname[i]] = on.get(r.qname[i], False) or k
+    share = float(np.mean(list(on.values())))
+    t_len = sum(e - s for _, s, e in fx.targets)
+    chance = 2 * sum(e - s + rl for _, s, e in fx.targets) / sum(lengths.values())
+    want = cfg["on_target_share"]
+    assert want - 0.01 <= share <= want + (1 - want) * chance + 0.01, (share, chance)
+    cov = 0
+    for i in range(len(r)):
+        first = r.pos[i]
+        last = first + sum(n for n, op in r.cigar[i] if op in "MDN=X") - 1
+        for s, e in bed.get(r.rname[i], []):
+            cov += max(0, min(last, e) - max(first, s + 1) + 1)
+    assert 0.97 * cfg["depth"] <= cov / t_len <= 1.10 * cfg["depth"], cov / t_len
+    other = fixture.make_fixture(cfg, 3)
+    assert other.targets == fx.targets and other.n_reads == fx.n_reads

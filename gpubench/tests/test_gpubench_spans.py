@@ -199,3 +199,101 @@ def test_interval_helpers():
     assert spanclock.complement([(1, 2), (3, 5)], 0, 4) == [(0, 1), (2, 3)]
     assert spanclock.intersect([(0, 2), (3, 4)], [(1, 3.5)]) == [(1, 2), (3, 3.5)]
     assert spanclock.total([(0, 2), (3, 4)]) == 3
+
+
+class _Recs:
+    def __init__(self, all_spans):
+        self.all_spans = all_spans
+
+
+def _jobs_planted(n_jobs, per_job, offset_us, shift_us):
+    """``per_job`` device spans a job (jobs 30 s apart) and their kernels
+    on the trace's clock, each job's kernels moved by ``shift_us[job]``
+    (a list: per kernel)."""
+    spans_, kernels = [], []
+    for j in range(n_jobs):
+        sp, ks = _planted(per_job, offset_us, x0=5e12 + j * 3e10)
+        # _planted counts trace time from its own x0: put it on one clock
+        ks = [(ts + j * 3e7 + shift_us[j][k], d) for k, (ts, d) in enumerate(ks)]
+        spans_ += [span("pairhmm.device", s, e, "job%d" % j, 1000 * j + k, thread="d",
+                        attrs={"launches": n}) for k, (s, e, n) in enumerate(sp)]
+        kernels += ks
+    return spans_, [("pairhmm_warp_kernel", "kernel", ts, d) for ts, d in kernels]
+
+
+def test_job_fits_hold_where_the_window_fit_does_not():
+    """The profiler's clock moves 700 us earlier for the middle job's
+    kernels: one bracket over the window is empty, each job's holds and
+    finds its own offset."""
+    shift = [[0.0] * 5, [-700.0] * 5, [0.0] * 5]
+    sp, ops = _jobs_planted(3, 5, 2.5e9, shift)
+    every = [(s["start"], s["end"], 1) for s in sp]
+    assert spanclock.fit(every, [(ts, d) for _, _, ts, d in ops]) is None
+    fits = spanclock.job_fits(_Recs(sp), ops)
+    assert sorted(fits) == ["job0", "job1", "job2"]
+    for k in range(3):
+        f = fits["job%d" % k]
+        # the job's first span starts at 5e12 + k * 3e10 ns, on the trace
+        # at the offset, 3e7 us a job later, and moved where it moved
+        want = 2.5e9 + k * 3e7 + shift[k][0]
+        assert abs(f.to_trace(5e12 + k * 3e10) - want) <= f.width_us / 2 + 1.0
+
+
+def test_job_fits_leave_out_a_job_whose_own_bracket_is_empty():
+    """Two kernels inside the middle job move: that job alone goes."""
+    shift = [[0.0] * 5, [0.0, 0.0, -800.0, -800.0, 0.0], [0.0] * 5]
+    sp, ops = _jobs_planted(3, 5, 2.5e9, shift)
+    assert sorted(spanclock.job_fits(_Recs(sp), ops)) == ["job0", "job2"]
+    # a kernel missing from the trace: the split is unknown, no fit at all
+    assert spanclock.job_fits(_Recs(sp), ops[:-1]) == {}
+
+
+def _timeline_job(job, t0, sid, wait_max_ns, device_us):
+    """One job of the hand-built timeline at ``t0`` (ns): phase.hc over
+    [t0, t0 + 1 ms]; a batch per (start, end) in ``device_us`` (us after
+    t0) with the wait ``wait_max_ns`` before its device span."""
+    out = [span("job", t0 - 10**6, t0 + 2 * 10**6, job, sid),
+           span("phase.hc", t0, t0 + 10**6, job, sid + 1, parent=sid)]
+    for k, (a, b) in enumerate(device_us):
+        bid = sid + 2 + 2 * k
+        out += [span("pairhmm.batch", t0 + a * 1000 - 50_000, t0 + b * 1000 + 50_000, job, bid,
+                     thread="d", attrs={"regions": 2, "wait_sum_ns": wait_max_ns,
+                                        "wait_max_ns": wait_max_ns}),
+                span("pairhmm.device", t0 + a * 1000, t0 + b * 1000, job, bid + 1, parent=bid,
+                     thread="d", attrs={"launches": 1})]
+    return out
+
+
+def test_pending_idle_with_a_job_fit_each(monkeypatch):
+    """Three jobs 10 ms apart, each with a copy over [100, 200] us of its
+    phase.hc and a kernel 10 us inside each device span. Job a: pending
+    over [150, 450] us, so 250 of its 820 us idle; job b, its kernel and
+    copy 700 us earlier on the trace's clock: pending over [350, 450], 100
+    of 820; job c: a second kernel moved 700 us inside the job, so no fit
+    and counted in neither part."""
+    p0, off = 10**12, 4.2e9
+    snap = {"spans": (_timeline_job("a", p0, 1, 300_000, [(450, 550)])
+                      + _timeline_job("b", p0 + 10**7, 11, 100_000, [(450, 550)])
+                      + _timeline_job("c", p0 + 2 * 10**7, 21, 300_000, [(450, 550), (700, 750)])),
+            "counters": [], "dropped": 0}
+
+    def ops_of(t0_ns, shift_us, kernels_us):
+        base = t0_ns / 1e3 + off + shift_us
+        return ([("Memcpy HtoD (Pageable -> Device)", "gpu_memcpy", base + 100, 100.0)]
+                + [("void pairhmm_warp_kernel<4>(...)", "kernel", base + a, b - a)
+                   for a, b in kernels_us])
+
+    ops = (ops_of(p0, 0.0, [(460, 540)]) + ops_of(p0 + 10**7, -700.0, [(460, 540)])
+           + ops_of(p0 + 2 * 10**7, 0.0, [(460, 540), (10, 40)]))
+    monkeypatch.setattr(spans, "snapshot", lambda: snap)
+    monkeypatch.setattr(spans, "_CACHE", [None, None])
+    rec = {"jobs": [{"rc": 0}] * 3, "trace": {"ops": ops}}
+    assert reader("pairhmm.pending_idle_pct")(rec) == pytest.approx(100 * 350 / 1640, rel=1e-9)
+    # the old single fit over the window reads nothing here
+    r = spans.load(rec)
+    every = [(s["start"], s["end"], 1) for s in r.all_spans if s["name"] == "pairhmm.device"]
+    assert spanclock.fit(every, [(ts, d) for _, c, ts, d in ops if c == "kernel"]) is None
+    # no job with a fit: no reading
+    monkeypatch.setattr(spans, "_CACHE", [None, None])
+    rec["trace"]["ops"] = ops[:-1]
+    assert reader("pairhmm.pending_idle_pct")(rec) is None

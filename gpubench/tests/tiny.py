@@ -1,7 +1,8 @@
 """A tiny copy of the benchmark for the CPU tests: BENCHMARK.json (with
-the tests' own cells) and the gpubench/ data files under a temporary
-root, the configurations cut to a few kb and the pool to two workers, and
-a run of run.py on the CPU."""
+the tests' own cells) and the gpubench/ data files, with the tests' own
+configuration and traffic (tests/configs/, tests/traffic/), under a
+temporary root, the configurations cut to a few kb and the pool to two
+workers, and a run of run.py on the CPU."""
 
 from __future__ import annotations
 
@@ -12,7 +13,8 @@ import os
 import shutil
 import sys
 
-BENCH = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+HERE = os.path.dirname(os.path.abspath(__file__))
+BENCH = os.path.dirname(HERE)
 ROOT = os.path.dirname(BENCH)
 if BENCH not in sys.path:
     sys.path.insert(0, BENCH)
@@ -21,7 +23,10 @@ TINY = {"platinum_wgs50x_2x101": ([["chr1", 9000], ["chr2", 6000]], 50)}
 # cells of the tests only, added as entries the way a later cell is: the
 # prep mix runs without the pool, so most fault tests take it
 EXTRA_CELLS = [{"name": "wgs50x.prep", "config": "platinum_wgs50x_2x101", "traffic": "prep",
-                "chips": 1, "why": "a test cell: the five-step reads without --haplotypecaller"}]
+                "chips": 1, "why": "a test cell: the five-step reads without --haplotypecaller"},
+               {"name": "capture.5step", "config": "capture_test", "traffic": "five_step_targets",
+                "chips": 1, "why": "a test cell: a capture design, the 5-step command with "
+                                   "--target-regions"}]
 
 
 def make_root(dest: str) -> str:
@@ -34,6 +39,9 @@ def make_root(dest: str) -> str:
         json.dump(bench, fh)
     for sub in ("configs", "traffic", "metrics"):
         shutil.copytree(os.path.join(BENCH, sub), os.path.join(dest, "gpubench", sub),
+                        dirs_exist_ok=True)
+    for sub in ("configs", "traffic"):  # the tests' own, added as a later cell's would be
+        shutil.copytree(os.path.join(HERE, sub), os.path.join(dest, "gpubench", sub),
                         dirs_exist_ok=True)
     for name, (contigs, depth) in TINY.items():
         path = os.path.join(dest, "gpubench", "configs", name + ".json")
