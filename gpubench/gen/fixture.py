@@ -17,6 +17,10 @@ intervals along each contig, written as a BED, and that share of the
 pairs drawn onto them; ``depth`` is then the mean coverage over the
 targets. Without those keys nothing of the above changes, byte for byte.
 
+A configuration with ``"qual_model": "hiseq2000"`` draws the raw base
+qualities from ``hiseq2000_quals`` on a stream of their own; without the
+key they are samgen's, uniform in 2-39, byte for byte as before.
+
 The genome, the variants, the targets and the sampled reads come from
 the configuration's own ``world_seed``, so that every seed gives the
 same work; ``--seed`` draws the reads' order in the SAM and their
@@ -209,6 +213,23 @@ def capture_pairs(cfg: dict, targets, world: int) -> int:
     return int(round(on / cfg["on_target_share"]))
 
 
+def hiseq2000_quals(rng: np.random.Generator, n: int, rl: int) -> np.ndarray:
+    """Raw base qualities of ``n`` reads of ``rl`` cycles in sequencing
+    order (5' to 3'), shaped as a HiSeq 2000 run at 2x100 bp: a mean that
+    falls linearly from Q38 at the first cycle to Q30 at the last, each
+    base scattered about it by a normal of 3 and clipped to Q6-41, so
+    that no base inside a read is Q2-5 and about 85 % of all bases are
+    Q30 or above (Illumina's specification: at least 80 %). Three reads
+    in ten end in a B-tail, Illumina's Read Segment Quality Control
+    Indicator: Q2 over their last 1-20 cycles, contiguous."""
+    cycles = np.arange(rl)
+    mean = 38.0 - 8.0 * cycles / max(rl - 1, 1)
+    q = np.clip(np.rint(mean + 3.0 * rng.standard_normal((n, rl))), 6, 41).astype(np.uint8)
+    tail = np.where(rng.random(n) < 0.3, rng.integers(1, 21, n), 0)
+    q[cycles[None, ::-1] < tail[:, None]] = 2
+    return q
+
+
 def sample_pairs(cfg: dict, haps: Dict[str, np.ndarray], world: int,
                  seed: int, targets=()) -> Dict[str, np.ndarray]:
     """``depth`` x genome / read length reads in pairs, each pair from one
@@ -217,13 +238,15 @@ def sample_pairs(cfg: dict, haps: Dict[str, np.ndarray], world: int,
     first mates soft-clipped by 5 bases, ``mismatch_rate`` random base
     changes, base qualities uniform in 2-39 with low-quality tails (0-2)
     on three reads in ten at each end, MAPQ uniform in 1-59 (samgen's
-    distributions). Then ``dup_share`` of the pairs are duplicates:
-    copies of sampled pairs, an ``optical_share`` of them on their
-    original's tile within 80 pixels. With ``targets``, the number of
-    pairs is ``capture_pairs``'s and an ``on_target_share`` of the
-    originals are drawn onto the targets (``_on_target``) instead. All
-    of that comes from ``world``; the names and the order of the pairs
-    come from ``seed``. Returns columns, pairs in the seed's order."""
+    distributions); with ``qual_model``, the qualities from that model
+    instead (stream 11 of ``world``), independent of the base changes.
+    Then ``dup_share`` of the pairs are duplicates: copies of sampled
+    pairs, an ``optical_share`` of them on their original's tile within
+    80 pixels. With ``targets``, the number of pairs is
+    ``capture_pairs``'s and an ``on_target_share`` of the originals are
+    drawn onto the targets (``_on_target``) instead. All of that comes
+    from ``world``; the names and the order of the pairs come from
+    ``seed``. Returns columns, pairs in the seed's order."""
     rng = _rng(world, 3)
     rl = int(cfg["read_length"])
     contigs = cfg["contigs"]
@@ -267,7 +290,17 @@ def sample_pairs(cfg: dict, haps: Dict[str, np.ndarray], world: int,
         return q
 
     seq1, seq2 = bases(pos), bases(mpos)
+    # drawn with or without a quality model, so that what follows on this
+    # stream (MAPQ, the duplicates) comes from the same draws either way
     qual1, qual2 = quals(), quals()
+    model = cfg.get("qual_model")
+    if model is not None:
+        if model != "hiseq2000":
+            raise ValueError("unknown qual_model %r (known: hiseq2000)" % model)
+        qrng = _rng(world, 11)
+        qual1 = hiseq2000_quals(qrng, n_orig, rl)
+        # the second mate is reversed: the SAM holds its 3' end first
+        qual2 = hiseq2000_quals(qrng, n_orig, rl)[:, ::-1]
     mapq = rng.integers(1, 60, n_orig)
 
     src = rng.integers(0, n_orig, n_dup)

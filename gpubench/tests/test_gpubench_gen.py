@@ -1,5 +1,6 @@
 """The generator: the same seed gives the same bytes, another seed other
-bytes of the same size."""
+bytes of the same size; a configuration without ``qual_model`` generates
+what it did, and ``"hiseq2000"`` keeps to its own statistics."""
 
 import filecmp
 import json
@@ -88,7 +89,8 @@ WGS_DIGESTS = {
 
 
 def test_wgs_inputs_are_byte_identical(tmp_path):
-    """A configuration without the capture keys generates what it did."""
+    """A configuration without the capture keys or ``qual_model`` generates
+    what it did."""
     import hashlib
 
     cfg = _cfg("platinum_wgs50x_2x101")
@@ -100,6 +102,90 @@ def test_wgs_inputs_are_byte_identical(tmp_path):
         got = tuple(hashlib.sha256(open(paths[k], "rb").read()).hexdigest()
                     for k in ("fasta", "bed", "sam"))
         assert got == want, seed
+
+
+# the same for the tests' capture configuration, FASTA, BED, SAM and
+# targets BED, as the parent of the quality model generated them
+CAPTURE_DIGESTS = {
+    2147483659: ("9b620698229e26e403f4fb0a6e192c9f47edc130c73d3661a058cacca9e937f1",
+                 "94f3be29f531841e7b384265c374b08af2e89d0c1f99c50abc169297d62d2ba2",
+                 "22feab97a729c016e262b7f6b230da26e949fab289b2a306619e4c2fe2607e17",
+                 "804b378ddf0f47f0b59d7366eb106a92673a6d5f0f1004e4b8b896217a59092e"),
+    7: ("9b620698229e26e403f4fb0a6e192c9f47edc130c73d3661a058cacca9e937f1",
+        "94f3be29f531841e7b384265c374b08af2e89d0c1f99c50abc169297d62d2ba2",
+        "380b5ddc5dbf2f246b2f9dbeac1a964ba56f674fd1025adfc95ae35019cc0a51",
+        "804b378ddf0f47f0b59d7366eb106a92673a6d5f0f1004e4b8b896217a59092e"),
+}
+
+
+def test_capture_inputs_are_byte_identical(tmp_path):
+    """A capture configuration without ``qual_model`` generates what it did."""
+    import hashlib
+
+    cfg = _capture()
+    assert "qual_model" not in cfg
+    for seed, want in CAPTURE_DIGESTS.items():
+        paths = fixture.write_inputs(fixture.make_fixture(cfg, seed), str(tmp_path / str(seed)),
+                                     "input")
+        got = tuple(hashlib.sha256(open(paths[k], "rb").read()).hexdigest()
+                    for k in ("fasta", "bed", "sam", "targets"))
+        assert got == want, seed
+
+
+def _sam_quals(fx):
+    """Each read's raw qualities in sequencing order (5' to 3'), from the
+    SAM: a reversed read's QUAL is read backwards."""
+    import numpy as np
+
+    out = []
+    for ln in fixture.sam_lines(fx):
+        f = ln.split("\t")
+        q = np.frombuffer(f[10].encode(), np.uint8) - 33
+        out.append(q[::-1] if int(f[1]) & 0x10 else q)
+    return np.stack(out)
+
+
+def test_hiseq2000_quality_model():
+    """``"hiseq2000"``: at least 80 % of bases at Q30 or above (Illumina's
+    HiSeq 2000 specification at 2x100 bp), no base below Q6 outside a 3'
+    tail, Q2 tails contiguous at the 3' end, 1-20 cycles long, on about
+    30 % of reads, a mean falling from about Q38 to about Q30; the reads'
+    positions, bases, MAPQ, names and order as without the key."""
+    import numpy as np
+
+    cfg = _cfg("platinum_wgs50x_2x101", contigs=[["chr1", 30000], ["chr2", 10000]])
+    seed = 2**31 + 77
+    plain = fixture.make_fixture(cfg, seed)
+    fx = fixture.make_fixture(dict(cfg, qual_model="hiseq2000"), seed)
+    for k, v in plain.pairs.items():
+        if not k.startswith("qual"):
+            assert np.array_equal(fx.pairs[k], v), k
+    assert [ln.split("\t")[:10] for ln in fixture.sam_lines(fx)] == \
+        [ln.split("\t")[:10] for ln in fixture.sam_lines(plain)]
+
+    q = _sam_quals(fx)
+    n, rl = q.shape
+    assert n > 10000 and q.max() <= 41
+    assert (q >= 30).mean() >= 0.80, (q >= 30).mean()
+    low = q < 6
+    # the first cycle from the 3' end that is not low: the tail's length
+    tail = np.where(low[:, ::-1].all(1), rl, np.argmin(low[:, ::-1], axis=1))
+    assert not (low & (np.arange(rl)[None, ::-1] >= tail[:, None])).any()  # none inside a read
+    assert (q[low] == 2).all()
+    has = tail > 0
+    assert 0.28 <= has.mean() <= 0.32, has.mean()
+    assert tail[has].min() == 1 and tail[has].max() == 20
+    inner = np.where(low, np.nan, q.astype(float))
+    first, last = np.nanmean(inner[:, 0]), np.nanmean(inner[:, -1])
+    assert 37 <= first <= 39 and 29 <= last <= 31, (first, last)
+
+
+def test_unknown_quality_model_is_refused():
+    import pytest
+
+    cfg = _cfg("platinum_wgs50x_2x101", contigs=[["chr1", 6000], ["chr2", 4000]])
+    with pytest.raises(ValueError, match="qual_model"):
+        fixture.make_fixture(dict(cfg, qual_model="novaseq"), 1)
 
 
 def _capture(**cut):
