@@ -2,7 +2,6 @@
 """Smoke run of the PyTorch/CUDA port (elprep_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --dispatch-ab ROUNDS
 
 Phases, each of which must pass:
 
@@ -13,12 +12,12 @@ Phases, each of which must pass:
 2. kernel: the PairHMM kernels at full width, batch by batch: 8192 pairs
    of reads of 100-151 bp against haplotypes of 250-600 bp (the pooled
    dispatch size; the warp path, which the plan picks for them, and the
-   stripe and CTA paths forced), 8192 pairs of reads of 257-450 bp
+   stripe path forced), 8192 pairs of reads of 257-450 bp
    against haplotypes of 300-650 bp ("long_hc", what 2x300 bp reads give
    the HaplotypeCaller), 8192 pairs of short reads with one in ten of
    257-300 bp ("mixed"), and 256 pairs of reads of 300-1500 bp against
    haplotypes of 1600-2400 bp ("long_256"); the stripe path, which the
-   plan picks for the last three, and the CTA path forced. Each path bit
+   plan picks for the last three. Each path bit
    for bit the plain PyTorch version on the card, the plan's path within
    5e-4 log10 of the f64 oracle on 64 sampled pairs, each path's time in
    turns in this run, the plain version's time and the bound; then
@@ -95,12 +94,6 @@ and as its last line
 ``{"ok": true, "device": {"platform": "gpu", ...}}``. Exits non-zero,
 printing no result, without a CUDA device or outside a checkout of the
 repository. Imports nothing of JAX and nothing of elprep_tpu.
-
-``--dispatch-ab ROUNDS`` runs only the build and the 5-step run, pooled
-on one warm pool, with 1 and 2 PairHMM dispatch threads
-(ELPREP_TPU_PAIRHMM_DISPATCH_WORKERS) in turns, 1 2 then 2 1, for
-ROUNDS rounds, after one untimed run, and prints the walls as its last
-line.
 """
 
 from __future__ import annotations
@@ -233,7 +226,7 @@ def ptxas_report(log: str) -> dict:
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
-            f = re.search(r"\d(pairhmm_(?:warp_|stripe_)?kernel)(?:ILi(\d+)E)?",
+            f = re.search(r"\d(pairhmm_(?:warp|stripe)_kernel)(?:ILi(\d+)E)?",
                           m.group(1))
             cur = (f.group(1) + ("<%s>" % f.group(2) if f.group(2) else "")
                    if f else m.group(1))
@@ -484,9 +477,9 @@ def _time_batch(name: str, pairs: tuple, paths: tuple, plan_path: str, reps: int
              % (p, name, batch.n_pairs, min(lens), max(lens), min(hlens), max(hlens),
                 cells, ms, reps, cells / ms / 1e6, ops_ms, bytes_ms, ms / bound_ms,
                 ceiling_ms))
-    _log("pairhmm %s: %s; plain version %.2f ms" % (name, ", ".join(
-        "%s %.2fx the cta path's time" % (p, times["cta"] / times[p])
-        for p in paths if p != "cta"), plain_ms))
+    _log("pairhmm %s: %splain version %.2f ms" % (name, "".join(
+        "%s %.2fx the stripe path's time; " % (p, times["stripe"] / times[p])
+        for p in paths if p != "stripe"), plain_ms))
     return out
 
 
@@ -591,19 +584,19 @@ def wes_batch(reps: int, n_sample: int, seed: int, plain_reps: int = 3) -> dict:
 # the plan's path)
 def _kernel_batches(n_pairs: int) -> list:
     return [
-        ("short", lambda: make_pairs(n_pairs, seed=5), ("warp", "stripe", "cta"), "warp"),
+        ("short", lambda: make_pairs(n_pairs, seed=5), ("warp", "stripe"), "warp"),
         ("long_hc", lambda: make_pairs(n_pairs, seed=15, read_len=(257, 450),
-                                       hap_len=(300, 650)), ("stripe", "cta"), "stripe"),
-        ("mixed", lambda: make_mixed_pairs(n_pairs, seed=17), ("stripe", "cta"), "stripe"),
+                                       hap_len=(300, 650)), ("stripe",), "stripe"),
+        ("mixed", lambda: make_mixed_pairs(n_pairs, seed=17), ("stripe",), "stripe"),
         ("long_256", lambda: make_pairs(256, seed=8, read_len=(300, 1500),
-                                        hap_len=(1600, 2400)), ("stripe", "cta"), "stripe"),
+                                        hap_len=(1600, 2400)), ("stripe",), "stripe"),
     ]
 
 
 def kernel_phase(n_pairs: int = KERNEL_PAIRS, reps: int = 20, n_sample: int = 64) -> dict:
     """The PairHMM kernels at full width, one batch after the other
     (_kernel_batches): the pooled dispatch size of short reads (the warp
-    path's; the stripe and CTA paths forced beside it), of the long reads
+    path's; the stripe path forced beside it), of the long reads
     2x300 bp data gives the HaplotypeCaller ("long_hc", reads 257-450 bp,
     haplotypes 300-650 bp), of short reads with one pair in ten long
     ("mixed"), and 256 pairs of reads of 300-1500 bp against haplotypes of
@@ -1215,7 +1208,7 @@ def _long_read_counts(what: str, tm) -> tuple:
     if launches != len(tm.longest) or by_path["stripe"] <= 0:
         raise AssertionError(f"the {what} run: {launches} launches ({by_path}) for "
                              f"{len(tm.longest)} batches; the stripe path must launch")
-    if by_path != {"warp": launches - n_long, "stripe": n_long, "cta": 0}:
+    if by_path != {"warp": launches - n_long, "stripe": n_long}:
         raise AssertionError(f"the {what} run: {n_long} batches with a read over "
                              f"{pc.WARP_MAX_READ_LEN} bases, launches per path {by_path}")
     return launches, by_path
@@ -1442,8 +1435,8 @@ def _run_five_step(workdir: str, fx: dict, elfasta: str, tag: str,
         _log("5-step %s CPU: this process %.2f s over its %.2f s wall, all threads"
              % (tag, main_cpu_s, wall))
     _log("5-step %s PairHMM: %d launches (per path %s), %d pairs, %.1f pairs per "
-         "launch; %.2f s wall in the PairHMM calls (summed over dispatch threads, "
-         "%.1f%% of the run): host packing %.2f s, kernel %.4f s on the device"
+         "launch; %.2f s wall in the PairHMM calls (%.1f%% of the run): host "
+         "packing %.2f s, kernel %.4f s on the device"
          % (tag, launches, json.dumps(by_path), tm.pairs, tm.pairs / launches,
             tm.total_s, 100.0 * tm.total_s / wall, tm.pack_s, kernel_s))
     return {"launches": launches, "launches_by_path": by_path, "wall_s": wall,
@@ -1629,6 +1622,7 @@ def sharded_library_phase(fx: dict, elfasta: str, max_cycle: int = 500,
     from elprep_tpu_torch.io import sam as samio
     from elprep_tpu_torch.io.fasta import MappedFasta, RefIndex
     from elprep_tpu_torch.ops import packed
+    from elprep_tpu_torch.ops import pairhmm as ph
     from elprep_tpu_torch.ops import pairhmm_cuda as pc
     from elprep_tpu_torch.parallel import pairhmm_sharded
     from elprep_tpu_torch.parallel import sharded as psh
@@ -1704,7 +1698,7 @@ def sharded_library_phase(fx: dict, elfasta: str, max_cycle: int = 500,
     plain = pc.pairhmm_forward_plain(batch, pc.default_tables(cuda)).cpu().numpy()
     with np.errstate(divide="ignore"):
         want = np.log10(plain.astype(np.float64)) - pc.F32_INITIAL_POW * np.log10(2.0)
-    kept = np.isfinite(want) & (want >= pc.F32_RESCUE_LOG10)
+    kept = np.isfinite(want) & (want >= ph.F32_RESCUE_LOG10)
     if len(got) != KERNEL_PAIRS or not np.array_equal(got[kept], want[kept]) \
             or not np.isfinite(got).all():
         raise AssertionError("pairhmm_sharded differs from the plain version")
@@ -1820,23 +1814,16 @@ def long_read_phase(workdir: str, ref: dict, fx: dict) -> dict:
 class _PairHMMTimer:
     """Wraps the PairHMM entry points for one run: host wall of the whole
     batched PairHMM, of the host packing, and the kernel's device time
-    (CUDA events around each launch). The sums are taken under a lock,
-    since with more than one dispatch thread
-    (ELPREP_TPU_PAIRHMM_DISPATCH_WORKERS) the calls are concurrent; the
-    walls are then summed over the threads, and the event pairs of
-    threads sharing the default stream overlap, so the device time is
-    counted twice where two launches interleave. The default, one
-    dispatch thread, has no overlap."""
+    (CUDA events around each launch). The calls come from one thread at a
+    time (the pool's dispatch thread, or the serial driver's), so their
+    walls and event pairs do not overlap."""
 
     def __init__(self):
-        import threading
-
         from elprep_tpu_torch.ops import pairhmm as ph
         from elprep_tpu_torch.ops import pairhmm_cuda as pc
 
         self.ph, self.pc = ph, pc
         self.orig = (ph.pairhmm_logl_pairs, pc.pack_pairs, pc.pairhmm_forward)
-        self.lock = threading.Lock()
         self.total_s = 0.0
         self.pack_s = 0.0
         self.events = []
@@ -1853,17 +1840,13 @@ class _PairHMMTimer:
             try:
                 return logl(*a, **k)
             finally:
-                dt = time.perf_counter() - t0
-                with self.lock:
-                    self.total_s += dt
+                self.total_s += time.perf_counter() - t0
 
         def pack_t(*a, **k):
             t0 = time.perf_counter()
             out = pack(*a, **k)
-            dt = time.perf_counter() - t0
-            with self.lock:
-                self.pairs += out.n_pairs
-                self.pack_s += dt
+            self.pack_s += time.perf_counter() - t0
+            self.pairs += out.n_pairs
             return out
 
         def fwd_t(batch, tabs):
@@ -1874,9 +1857,8 @@ class _PairHMMTimer:
             e0.record()
             out = fwd(batch, tabs)
             e1.record()
-            with self.lock:
-                self.events.append((e0, e1))
-                self.longest.append(batch.max_read_len)
+            self.events.append((e0, e1))
+            self.longest.append(batch.max_read_len)
             return out
 
         self.ph.pairhmm_logl_pairs = logl_t
@@ -1933,29 +1915,6 @@ def slice_phase(workdir: str, ref: dict, sam: str, n_reads: int = SLICE_READS) -
             100.0 * tm.total_s / wall, tm.pack_s, kernel_s))
     return {"launches": launches, "launches_by_path": by_path, "wall_s": wall,
             "pairhmm_s": tm.total_s, "pack_s": tm.pack_s, "kernel_s": kernel_s}
-
-
-def dispatch_ab_phase(workdir: str, fx: dict, elfasta: str, rounds: int) -> dict:
-    """The pooled 5-step run on the warm pool with 1 and 2 PairHMM
-    dispatch threads in turns; per setting the walls and the "Calling
-    variants" phase walls, in run order. One untimed run goes first: the
-    first run in a process pays the card's first-use set-up."""
-    _run_five_step(workdir, fx, elfasta, "ab-warm-up")
-    walls = {"1": [], "2": []}
-    hc = {"1": [], "2": []}
-    for r in range(rounds):
-        for n in ("1", "2") if r % 2 == 0 else ("2", "1"):
-            os.environ["ELPREP_TPU_PAIRHMM_DISPATCH_WORKERS"] = n
-            try:
-                run = _run_five_step(workdir, fx, elfasta, f"ab{r}-{n}")
-            finally:
-                os.environ.pop("ELPREP_TPU_PAIRHMM_DISPATCH_WORKERS", None)
-            walls[n].append(run["wall_s"])
-            hc[n].append(dict(run["phases"]).get("Calling variants.", run["wall_s"]))
-    _log("dispatch threads A/B (%d rounds): walls 1 thread %s, 2 threads %s; "
-         "calling variants 1 thread %s, 2 threads %s"
-         % (rounds, walls["1"], walls["2"], hc["1"], hc["2"]))
-    return {"wall_s": walls, "calling_variants_s": hc}
 
 
 # ---------------------------------------------------------------------------
@@ -2165,19 +2124,8 @@ def main() -> int:
         return out
 
     build = phase("build", build_phase)
-    if len(sys.argv) == 3 and sys.argv[1] == "--dispatch-ab":
-        start_pool()
-        workdir = tempfile.mkdtemp(prefix="chip_smoke_")
-        try:
-            ref = make_reference(workdir)
-            fx = make_five_step_fixture(workdir, ref)
-            ab = dispatch_ab_phase(workdir, fx, ref["elfasta"], int(sys.argv[2]))
-        finally:
-            shutil.rmtree(workdir, ignore_errors=True)
-        print(json.dumps({"dispatch_ab": ab}), flush=True)
-        return 0
     if len(sys.argv) > 1:
-        print("usage: chip_smoke.py [--dispatch-ab ROUNDS]", file=sys.stderr)
+        print("usage: chip_smoke.py", file=sys.stderr)
         return 2
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:

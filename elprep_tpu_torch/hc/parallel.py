@@ -33,7 +33,7 @@ downsampler in the main process, so worker scheduling cannot perturb it.
 
 This is the counterpart of elprep_tpu/hc/parallel.py: the messages,
 flow control and the cross-span pre-start are the same; the worker
-set-up, the dispatch tuning and the carry's rule (a ``geno_done`` says
+set-up, the one dispatch thread and the carry's rule (a ``geno_done`` says
 whether genotyping read the carry; only such a region is redone) are
 the port's own.
 """
@@ -57,32 +57,13 @@ PREP_TASK_SIZE = 48
 # driver uses larger chunks)
 ACT_CHUNK = 1 << 16
 # PairHMM dispatch batching: accumulate pendings until this many
-# (read, hap) pairs share one kernel launch (values are
-# padding-invariant so batching does not change results; bigger batches
-# amortize the per-launch host packing and copy)
+# (read, hap) pairs, or this many regions, share one kernel launch (values
+# are padding-invariant so batching does not change results; bigger
+# batches amortize the per-launch host packing and copy). One dispatch
+# thread launches them: on the H100 a second one (packing while the
+# other's kernel runs) did not shorten the pooled 5-step run.
 PAIRHMM_PAIR_TARGET = 8192
 PAIRHMM_MAX_PENDINGS = 64
-
-
-def _dispatch_tuning():
-    """(pair_target, max_pendings, dispatch_workers).
-
-    The per-pair likelihoods are padding- and batch-invariant, so batch
-    size and dispatch concurrency are pure performance knobs. One
-    dispatch thread on every device: on the H100 a second one (packing
-    while the other's kernel runs) did not shorten the pooled 5-step
-    run, whose dozen launches are a few percent of it
-    (``chip_smoke.py --dispatch-ab``). ELPREP_TPU_PAIRHMM_PAIR_TARGET /
-    _PAIRHMM_DISPATCH_WORKERS override."""
-    target = PAIRHMM_PAIR_TARGET
-    workers = 1
-    v = os.environ.get("ELPREP_TPU_PAIRHMM_PAIR_TARGET")
-    if v:
-        target = int(v)
-    v = os.environ.get("ELPREP_TPU_PAIRHMM_DISPATCH_WORKERS")
-    if v:
-        workers = int(v)
-    return target, PAIRHMM_MAX_PENDINGS, workers
 
 
 # outstanding prepare tasks per worker before flow control kicks in
@@ -1216,9 +1197,8 @@ class _RegionRun:
     def dispatch_pairhmm(self, force=False) -> None:
         if not self.pending_batch:
             return
-        pair_target, max_pendings, _ = _dispatch_tuning()
-        if not force and self._batch_pairs() < pair_target \
-                and len(self.pending_batch) < max_pendings:
+        if not force and self._batch_pairs() < PAIRHMM_PAIR_TARGET \
+                and len(self.pending_batch) < PAIRHMM_MAX_PENDINGS:
             return
         batch = self.pending_batch[:]
         del self.pending_batch[:]
@@ -1250,7 +1230,7 @@ class _RegionRun:
         regions = self.regions
         term, geno = self.term, self.geno
         redo_sent = self.redo_sent
-        self.ph_pool = ThreadPoolExecutor(max_workers=_dispatch_tuning()[2],
+        self.ph_pool = ThreadPoolExecutor(max_workers=1,
                                           thread_name_prefix="pairhmm-dispatch")
         emit = 0
         try:

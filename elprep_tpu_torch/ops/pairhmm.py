@@ -31,6 +31,7 @@ from typing import Sequence, Tuple
 import numpy as np
 
 from .. import device as _device
+from .. import trace
 from ..hc import tables
 
 F32_INITIAL_POW = 100  # 2^100 fits float32 with headroom
@@ -246,8 +247,9 @@ def pairhmm_f64_diag(seq: bytes, qual: np.ndarray, mapq: int, hap: bytes) -> flo
 # ---------------------------------------------------------------------------
 
 
-# PairHMM mesh (parallel/mesh.py): when set, a dispatch on the session
-# device splits its pair axis over the mesh's devices instead
+# the session's PairHMM mesh (parallel/mesh.py; the CLI sets it for
+# --sharded): when set, a dispatch on the session device splits its pair
+# axis over the mesh's devices instead
 _MESH: list = [None]
 
 
@@ -265,19 +267,30 @@ def pairhmm_logl_pairs(
 ) -> np.ndarray:
     """log10 likelihood per explicit (read, hap) pair — the cross-region
     batch entry (pairs from many assembly regions share ONE device
-    dispatch). f32 wavefront with f64 host rescue. The backend is the
-    device (``None``: the session default, or the PairHMM mesh when one
-    is set, one contiguous chunk of pairs per mesh entry): the kernel on
-    ``cuda``, its plain version on ``cpu``."""
+    dispatch). f32 wavefront with f64 host rescue: a pair whose f32 value
+    underflows or falls below F32_RESCUE_LOG10 is recomputed by
+    ``pairhmm_f64_diag`` (GATK's float-then-double strategy). The f32
+    backend is the kernel on ``cuda``, its plain version on ``cpu``.
+    ``device`` is one device or a sequence of them (a mesh, one contiguous
+    chunk of pairs per entry); ``None``: the session's PairHMM mesh when
+    one is set, else the session default."""
     from . import pairhmm_cuda
 
     if len(pair_r) == 0:
         return np.zeros(0, np.float64)
     if device is None and _MESH[0] is not None:
-        devices = tuple(_device.resolve(d) for d in _MESH[0])
-    else:
-        devices = (_device.resolve(device),)
-    return pairhmm_cuda.pairhmm_pairs(reads, haps, pair_r, pair_h, devices)
+        device = _MESH[0]
+    devices = tuple(_device.resolve(d) for d in (
+        device if isinstance(device, (list, tuple)) else (device,)))
+    acc = pairhmm_cuda.pairhmm_pairs(reads, haps, pair_r, pair_h, devices)
+    with np.errstate(divide="ignore"):
+        out = np.log10(acc.astype(np.float64)) - F32_INITIAL_POW * np.log10(2.0)
+    bad = ~np.isfinite(out) | (out < F32_RESCUE_LOG10)
+    with trace.span("pairhmm.rescue"):
+        for b in np.flatnonzero(bad):
+            seq, qual, mapq = reads[int(pair_r[b])]
+            out[b] = pairhmm_f64_diag(seq, qual, mapq, haps[int(pair_h[b])])
+    return out
 
 
 def pairhmm_f32_batch(

@@ -3,12 +3,11 @@
 launch counters.
 
 This is the counterpart of ``elprep_tpu/ops/pairhmm_pallas.py``: the
-kernels replace the Pallas TPU wavefront ``pairhmm_pallas._kernel``. Three
+kernels replace the Pallas TPU wavefront ``pairhmm_pallas._kernel``. Two
 kernels compute the same function, bit for bit; ``launch_plan`` picks one
 per batch from its longest read: the warp-per-pair kernel ("warp") up to
 ``WARP_MAX_READ_LEN`` bases, the warp-per-pair kernel that sweeps a long
-read in stripes of rows ("stripe") above. The CTA-per-pair kernel ("cta")
-runs only when a caller forces it.
+read in stripes of rows ("stripe") above.
 
 Inputs travel as one :class:`PairBatch`: the distinct reads and
 haplotypes of a dispatch, each stored once (bases, modified qualities and
@@ -20,6 +19,8 @@ device from :class:`PairHMMTables`.
 
 ``pairhmm_forward`` takes the plain version only for a batch on the
 CPU. For a batch on ``cuda`` it launches the kernel or raises.
+``pairhmm_pairs`` returns the kernel's float32 sums; the log10 values and
+the f64 rescue of underflowed pairs are ``ops/pairhmm.py``'s.
 """
 
 from __future__ import annotations
@@ -40,31 +41,28 @@ import torch
 
 from .. import trace
 from ..hc import tables
-from .pairhmm import (F32_INITIAL_POW, F32_RESCUE_LOG10, modified_qualities,
-                      pairhmm_f64_diag, repeat_lengths_for_read)
+from .pairhmm import F32_INITIAL_POW, modified_qualities, repeat_lengths_for_read
 
 # kernel launches so far, in all and per path (the wrapper adds one where
 # it launches a kernel, nowhere else)
 LAUNCHES = 0
-LAUNCHES_BY_PATH = {"warp": 0, "stripe": 0, "cta": 0}
+LAUNCHES_BY_PATH = {"warp": 0, "stripe": 0}
 
-# The HaplotypeCaller pool may dispatch from several threads at once
-# (ELPREP_TPU_PAIRHMM_DISPATCH_WORKERS > 1). This lock covers the three
-# check-then-act steps they share: the library build,
-# the per-device tables and the launch counts. The launches themselves
-# need no more: both threads use the current (default) stream, and each
-# caller ends in ``.cpu()``, which waits for its own kernel.
+# The wrapper is called from the serial driver's main thread, the
+# HaplotypeCaller pool's dispatch thread and the mesh loop, and a process
+# may run more than one of them. This lock covers the three check-then-act
+# steps they share: the library build, the per-device tables and the launch
+# counts. The launches themselves need no more: every caller uses the
+# current (default) stream and reads its own result back, which waits for
+# its own kernel.
 _LOCK = threading.Lock()
 
 I2M = np.float32(tables.INDEL_TO_MATCH)
 I2I = np.float32(tables.INDEL_TO_INDEL)
 _N = ord("N")
 
-# the CTA kernel's launch shape: at most this many threads (a multiple of
-# 32) per pair, each holding 1, 2, 4, ... rows of the DP matrix
+# threads per CTA, at most (the kernels' __launch_bounds__)
 MAX_THREADS = 256
-MAX_ROWS_PER_THREAD = 64
-MAX_READ_LEN = MAX_THREADS * MAX_ROWS_PER_THREAD
 # the warp kernel's: one warp per pair, each lane holding 1, 2, 3, ... 8
 # rows; WARPS_PER_CTA pairs per CTA. 4 rather than 8: with no barrier the
 # warps of a CTA share nothing, and at 5 rows per lane the register file
@@ -82,6 +80,8 @@ WARPS_PER_CTA = 4
 STRIPE_ROWS = 8
 STRIPE_WARPS_PER_CTA = 4
 SMEM_PER_BLOCK_H100 = 232448
+# the longest read the stripe path takes (and so the package)
+MAX_READ_LEN = 16384
 
 _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc", "pairhmm.cu")
@@ -319,8 +319,7 @@ class _Library:
         self.build_log = log
         lib = ctypes.CDLL(path)
         P = ctypes.c_void_p
-        for fn in (lib.pairhmm_forward, lib.pairhmm_forward_warp,
-                   lib.pairhmm_forward_stripe):
+        for fn in (lib.pairhmm_forward_warp, lib.pairhmm_forward_stripe):
             fn.argtypes = [P] * 15 + [ctypes.c_float, ctypes.c_float, P,
                                       ctypes.c_int, ctypes.c_int, ctypes.c_int, P]
             fn.restype = ctypes.c_int
@@ -328,19 +327,18 @@ class _Library:
         lib.pairhmm_error_string.restype = ctypes.c_char_p
         for fn in (lib.pairhmm_stripe_smem_bytes, lib.pairhmm_smem_per_block_optin):
             fn.argtypes = [ctypes.c_int]
-        for fn in (lib.pairhmm_max_rows_per_thread, lib.pairhmm_max_threads,
+        for fn in (lib.pairhmm_max_threads,
                    lib.pairhmm_warp_max_rows_per_lane, lib.pairhmm_stripe_rows_per_lane,
                    lib.pairhmm_stripe_smem_bytes, lib.pairhmm_smem_per_block_optin):
             fn.restype = ctypes.c_int
-        if (lib.pairhmm_max_rows_per_thread() != MAX_ROWS_PER_THREAD
-                or lib.pairhmm_max_threads() != MAX_THREADS
+        if (lib.pairhmm_max_threads() != MAX_THREADS
                 or lib.pairhmm_warp_max_rows_per_lane() != WARP_MAX_ROWS
                 or lib.pairhmm_stripe_rows_per_lane() != STRIPE_ROWS
                 or any(lib.pairhmm_stripe_smem_bytes(lh) != stripe_smem_bytes(lh)
                        for lh in (0, 1, 5, 650, 2400, 16384))):
             raise RuntimeError(f"{path}: launch limits disagree with the wrapper")
         self.lib = lib
-        self.entry = {"cta": lib.pairhmm_forward, "warp": lib.pairhmm_forward_warp,
+        self.entry = {"warp": lib.pairhmm_forward_warp,
                       "stripe": lib.pairhmm_forward_stripe}
         self._smem: Dict[int, int] = {}
 
@@ -441,10 +439,8 @@ def launch_plan(max_read_len: int, path: Optional[str] = None, max_hap_len: int 
     warp, STRIPE_ROWS rows per lane in a full stripe (``stripe_rows``), as
     many warps per CTA, up to STRIPE_WARPS_PER_CTA, as ``smem_per_block``
     holds at ``stripe_smem_bytes(max_hap_len)`` each; a haplotype that does
-    not fit with one warp per CTA raises. The "cta" path, one CTA per pair
-    with rows per thread the smallest power of two that fits the read in
-    MAX_THREADS threads, only when forced. ``path`` forces one of the three
-    for a batch it can take."""
+    not fit with one warp per CTA raises. ``path`` forces either for a
+    batch it can take."""
     if max_read_len > MAX_READ_LEN:
         raise ValueError(f"read of {max_read_len} bases exceeds {MAX_READ_LEN}")
     if path is None:
@@ -462,13 +458,7 @@ def launch_plan(max_read_len: int, path: Optional[str] = None, max_hap_len: int 
                              f"needs {per_warp} bytes of shared memory per warp, more "
                              f"than the {smem_per_block} a block may take")
         return "stripe", 32 * warps, STRIPE_ROWS
-    if path != "cta":
-        raise ValueError(f"unknown PairHMM path {path!r}")
-    rows = 1
-    while rows * MAX_THREADS < max_read_len:
-        rows *= 2
-    per_thread = -(-max_read_len // rows)
-    return "cta", max(32, -(-per_thread // 32) * 32), rows
+    raise ValueError(f"unknown PairHMM path {path!r}")
 
 
 def pairhmm_forward(batch: PairBatch, tabs: PairHMMTables) -> torch.Tensor:
@@ -482,8 +472,8 @@ def pairhmm_forward(batch: PairBatch, tabs: PairHMMTables) -> torch.Tensor:
 
 def _pairhmm_forward_path(batch: PairBatch, tabs: PairHMMTables,
                           path: Optional[str]) -> torch.Tensor:
-    """pairhmm_forward on a forced ``path`` ("warp", "stripe" or "cta";
-    None: the plan's). For the tests and chip_smoke.py only."""
+    """pairhmm_forward on a forced ``path`` ("warp" or "stripe"; None: the
+    plan's). For the tests and chip_smoke.py only."""
     global LAUNCHES
     launch_plan(batch.max_read_len, path)  # a path that cannot take the batch raises
     dev = batch.device
@@ -526,21 +516,20 @@ def _pairhmm_forward_path(batch: PairBatch, tabs: PairHMMTables,
 
 
 def pairhmm_pairs(reads, haps, pair_r, pair_h, devices) -> np.ndarray:
-    """log10 likelihood per explicit (read, hap) pair (the counterpart of
-    pairhmm_pallas_pairs): pack on the host, one copy to the device, the
-    kernel (or, for the CPU, its plain version), then the f64 host rescue
-    of underflowed pairs. The pair axis splits into one contiguous chunk
-    per entry of ``devices`` (one device, or the PairHMM mesh, which may
-    name a device more than once); every chunk is packed, then every chunk
-    is launched before any result is read back, so chunks on different
-    cards overlap. A pair's value does not depend on its batch (padding
-    invariance), so the split is bit-exact. Recorder spans (trace.py):
-    ``pairhmm.pack``, ``pairhmm.device`` (from the first copy to the
-    device through the last read-back; attributes ``bytes`` and
-    ``launches``, the kernels launched) and ``pairhmm.rescue``."""
+    """The kernel's float32 sum per explicit (read, hap) pair (what
+    pairhmm_forward returns, read back): pack on the host, one copy to the
+    device, the kernel (or, for the CPU, its plain version). The pair axis
+    splits into one contiguous chunk per entry of ``devices`` (one device,
+    or the PairHMM mesh, which may name a device more than once); every
+    chunk is packed, then every chunk is launched before any result is read
+    back, so chunks on different cards overlap. A pair's value does not
+    depend on its batch (padding invariance), so the split is bit-exact.
+    Recorder spans (trace.py): ``pairhmm.pack`` and ``pairhmm.device``
+    (from the first copy to the device through the last read-back;
+    attributes ``bytes`` and ``launches``, the kernels launched)."""
     n = len(pair_r)
     if n == 0:
-        return np.zeros(0, np.float64)
+        return np.zeros(0, np.float32)
     pair_r = np.asarray(pair_r)
     pair_h = np.asarray(pair_h)
     per = -(-n // len(devices))
@@ -554,13 +543,4 @@ def pairhmm_pairs(reads, haps, pair_r, pair_h, devices) -> np.ndarray:
                    launches=sum(dev.type == "cuda" for dev, _ in chunks))
         accs = [pairhmm_forward(b.to(dev), default_tables(dev))
                 for (dev, _), b in zip(chunks, packed)]
-        acc = np.concatenate([a.cpu().numpy() for a in accs])
-    with np.errstate(divide="ignore"):
-        out = np.log10(acc.astype(np.float64)) - F32_INITIAL_POW * np.log10(2.0)
-    # f64 rescue for underflow (GATK float->double strategy), on the host
-    bad = ~np.isfinite(out) | (out < F32_RESCUE_LOG10)
-    with trace.span("pairhmm.rescue"):
-        for b in np.flatnonzero(bad):
-            seq, qual, mapq = reads[int(pair_r[b])]
-            out[b] = pairhmm_f64_diag(seq, qual, mapq, haps[int(pair_h[b])])
-    return out
+        return np.concatenate([a.cpu().numpy() for a in accs])

@@ -50,7 +50,8 @@ def _case(seed, read_lens, hap_lens, n_frac=0.05, hap_n_frac=0.0):
     return reads, haps, pair_r, pair_h
 
 
-# each case reaches another rows-per-thread instantiation of the kernel
+# the plan's path over the read lengths the package takes: the warp path up
+# to 256 bases, then the stripe path with 1 to 46 stripes below the first
 _LONGEST = [151, 256, 300, 700, 1500, 3000, 6000, 12000]
 
 
@@ -153,22 +154,18 @@ def test_warp_kernel_padding_invariance(cuda):
 
 @pytest.mark.cuda
 def test_forced_paths_agree(cuda):
-    """The same batch through the warp path, the stripe path, the CTA path
-    and the plain version: bit for bit, each launch counted on its own
-    path."""
+    """The same batch through the warp path, the stripe path and the plain
+    version: bit for bit, each launch counted on its own path."""
     reads, haps, pair_r, pair_h = _case(12, [3, 64, 100, 151, 200, 256],
                                         [1, 80, 250, 600], hap_n_frac=0.01)
     batch = pc.pack_pairs(reads, haps, pair_r, pair_h)
     n0, by0 = _launches()
     warp, plain = _forward_both(batch, cuda, "warp")
     stripe, _ = _forward_both(batch, cuda, "stripe")
-    cta, _ = _forward_both(batch, cuda, "cta")
-    assert pc.LAUNCHES == n0 + 3
-    assert pc.LAUNCHES_BY_PATH == {"warp": by0["warp"] + 1, "stripe": by0["stripe"] + 1,
-                                   "cta": by0["cta"] + 1}
+    assert pc.LAUNCHES == n0 + 2
+    assert pc.LAUNCHES_BY_PATH == {"warp": by0["warp"] + 1, "stripe": by0["stripe"] + 1}
     assert torch.equal(warp, plain)
     assert torch.equal(stripe, plain)
-    assert torch.equal(cta, plain)
 
 
 # longest reads of the stripe path: a first stripe of each size class, the
@@ -182,7 +179,7 @@ def test_stripe_kernel_equals_plain(cuda, longest):
     """Ragged long batches (reads of 1 base up to ``longest``, haplotypes of
     1 to 2400 bases, 'N' on both sides) on the plan's stripe path: one
     launch, bit for bit the plain version, on the CPU too up to 700 bases;
-    the CTA path forced on the same batch agrees."""
+    the warp path refuses it."""
     reads, haps, pair_r, pair_h = _case(
         2000 + longest, sorted({1, 40, 256, 257, (longest + 257) // 2, longest}),
         [1, 300, 1100, 2400], n_frac=0.02, hap_n_frac=0.01)
@@ -194,8 +191,6 @@ def test_stripe_kernel_equals_plain(cuda, longest):
     assert pc.LAUNCHES_BY_PATH == {**by0, "stripe": by0["stripe"] + 1}
     assert bool(torch.isfinite(got).all())
     assert torch.equal(got, plain)
-    cta, _ = _forward_both(batch, cuda, "cta")
-    assert torch.equal(cta, plain)
     if longest <= 700:
         assert torch.equal(got.cpu(), pc.pairhmm_forward_plain(batch, pc.default_tables("cpu")))
 
@@ -518,15 +513,17 @@ def test_filters_on_cuda_equal_cpu_route(cuda, tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# the HaplotypeCaller worker pool feeding the kernel from two threads
+# the wrapper's lock, and the HaplotypeCaller worker pool feeding the kernel
 # ---------------------------------------------------------------------------
 
 
 @pytest.mark.cuda
 def test_concurrent_forward_calls_equal_plain(cuda):
-    """Two threads call the wrapper at once, as the pool's dispatch
-    threads do with ELPREP_TPU_PAIRHMM_DISPATCH_WORKERS=2: every result
-    equals the plain version, and LAUNCHES counts every launch."""
+    """Two threads call the wrapper at once, as the serial driver, the
+    pool's dispatch thread and the mesh loop may in one process: under
+    ``_LOCK`` (one library build, one table set per device, the launch
+    counts) every result equals the plain version, and LAUNCHES counts
+    every launch."""
     import threading
 
     batches = []
@@ -592,23 +589,17 @@ def _pool_fixture():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dispatch", [None, "2"])
 @pytest.mark.parametrize("mode", ["NONE", "GVCF"])
-def test_pooled_call_variants_on_cuda_equals_serial(cuda, monkeypatch, mode, dispatch):
-    """call_variants with the worker pool (the dispatcher feeding the
-    kernel batches of many regions, from its default one thread or from
-    two) == the serial run (batches of 16 regions), byte for byte, both
-    on the card."""
+def test_pooled_call_variants_on_cuda_equals_serial(cuda, mode):
+    """call_variants with the worker pool (its dispatch thread feeding the
+    kernel batches of many regions) == the serial run (batches of 16
+    regions), byte for byte, both on the card."""
     from elprep_tpu_torch import device
     from elprep_tpu_torch.hc import driver, parallel
     from elprep_tpu_torch.hc.activity import make_hc_params
     from elprep_tpu_torch.hc.refconf import expand_variants
     from elprep_tpu_torch.io.vcf import format_variant
 
-    if dispatch:
-        monkeypatch.setenv("ELPREP_TPU_PAIRHMM_DISPATCH_WORKERS", dispatch)
-    else:
-        monkeypatch.delenv("ELPREP_TPU_PAIRHMM_DISPATCH_WORKERS", raising=False)
     ref, reads, hdr = _pool_fixture()
     old = device.resolve()
     device.set_default_device(cuda)
@@ -623,7 +614,6 @@ def test_pooled_call_variants_on_cuda_equals_serial(cuda, monkeypatch, mode, dis
             assert pc.LAUNCHES > n0
             out[nw] = [format_variant(x) for x in expand_variants(v)]
         assert parallel.get_pool(2) is not None
-        assert parallel._dispatch_tuning()[2] == int(dispatch or 1)
         for info in parallel.get_pool(2).probe_workers():
             assert info["device"] == "cpu" and info["cuda_initialized"] is False
     finally:
@@ -649,7 +639,7 @@ def test_pairhmm_sharded_on_two_card_entries_equals_plain(cuda):
     plain = pc.pairhmm_forward_plain(batch, pc.default_tables(cuda)).cpu().numpy()
     with np.errstate(divide="ignore"):
         want = np.log10(plain.astype(np.float64)) - pc.F32_INITIAL_POW * np.log10(2.0)
-    kept = np.isfinite(want) & (want >= pc.F32_RESCUE_LOG10)
+    kept = np.isfinite(want) & (want >= pairhmm.F32_RESCUE_LOG10)
     assert kept.sum() >= 5
     np.testing.assert_array_equal(got.reshape(-1)[kept], want[kept])
     np.testing.assert_array_equal(got, pairhmm.pairhmm_f32_batch(reads, haps, device="cpu"))

@@ -5,8 +5,8 @@ contigs), with the f64 host PairHMM and with the kernel's plain version
 (which the pool dispatches in batches that differ from the serial
 ones); the pool redoes exactly the regions whose serial genotyping read
 a non-empty deletions carry; it equals the JAX package's pooled run on
-the same reads; and a spawned worker runs on the CPU with every card
-hidden."""
+the same reads; a spawned worker runs on the CPU with every card
+hidden; and the dispatcher's batch rule."""
 
 import os
 
@@ -391,13 +391,42 @@ def test_get_pool_serial_below_two_workers(n_workers):
     assert parallel.get_pool(n_workers) is None
 
 
-def test_dispatch_tuning_follows_the_device(on_cpu, monkeypatch):
-    """One dispatch thread, on the CPU as on cuda (tests/test_torch_cuda.py),
-    the pair target 8192 and pending cap 64, and the JAX package's
-    environment overrides."""
-    monkeypatch.delenv("ELPREP_TPU_PAIRHMM_PAIR_TARGET", raising=False)
-    monkeypatch.delenv("ELPREP_TPU_PAIRHMM_DISPATCH_WORKERS", raising=False)
-    assert parallel._dispatch_tuning() == (8192, 64, 1)
-    monkeypatch.setenv("ELPREP_TPU_PAIRHMM_PAIR_TARGET", "100")
-    monkeypatch.setenv("ELPREP_TPU_PAIRHMM_DISPATCH_WORKERS", "3")
-    assert parallel._dispatch_tuning() == (100, 64, 3)
+def test_dispatch_rule_batches_by_pairs_and_regions():
+    """_RegionRun.dispatch_pairhmm, with a stub pool and executor: nothing
+    is submitted below 8192 pairs and 64 pending regions, one batch of all
+    pending regions at either limit, and a smaller one when forced."""
+    import itertools
+    import types
+
+    sent = []
+    pool = types.SimpleNamespace(n=1, req_qs=[None], owner_of=lambda gen, pos: 0)
+    run = parallel._RegionRun(pool, 0, None, [], True)
+    run.ph_pool = types.SimpleNamespace(submit=lambda fn, *a: sent.append((fn, a)))
+    rids = itertools.count()
+
+    def pend(n, n_reads, n_haps):
+        """n regions of n_reads x n_haps pairs, each offered to the rule."""
+        out = [next(rids) for _ in range(n)]
+        for rid in out:
+            run.pend_inputs[rid] = ([b"r"] * n_reads, [b"h"] * n_haps, [True] * n_haps)
+            run.pend_received[rid] = rid
+            run.pending_batch.append(rid)
+            run.dispatch_pairhmm()
+        return out
+
+    batch = pend(7, 128, 8)  # 7 168 pairs
+    assert not sent
+    batch += pend(1, 128, 8)  # 8 192 pairs
+    assert len(sent) == 1
+    fn, (got, workloads, received) = sent.pop()
+    assert fn == run._run_pairhmm and got == batch and received == batch
+    assert [len(r) * len(h) for r, h, _ in workloads] == [1024] * 8
+    assert not run.pending_batch and not run.pend_inputs and not run.pend_received
+    batch = pend(63, 1, 1)
+    assert not sent
+    batch += pend(1, 1, 1)  # the 64th region
+    assert [a[0] for _, a in sent] == [batch]
+    batch = pend(3, 2, 3)
+    run.dispatch_pairhmm(force=True)
+    run.dispatch_pairhmm(force=True)  # nothing pending: nothing sent
+    assert [a[0] for _, a in sent[1:]] == [batch]

@@ -138,6 +138,49 @@ def test_logl_pairs_matches_jax_pallas_interpret():
     assert np.all(np.abs(got - want) < 1e-5), np.abs(got - want).max()
 
 
+def _rescue_case(seed=4):
+    """Reads at Q40 cut from one haplotype with 0, 6, 8 and 40 mismatches:
+    log10 about -2, -28 and -33 in f32 and, for the last, an f32 underflow
+    to 0."""
+    rng = np.random.RandomState(seed)
+    hap = rng.choice(_BASES, 120)
+    reads = []
+    for lr, n_mismatch in ((60, 0), (40, 6), (40, 8), (80, 40)):
+        seq = hap[10 : 10 + lr].copy()
+        pos = rng.choice(lr, n_mismatch, replace=False)
+        seq[pos] = _BASES[(np.searchsorted(_BASES, seq[pos]) + 1) % 4]
+        reads.append((seq.tobytes(), np.full(lr, 40, np.uint8), 60))
+    return reads, [hap.tobytes()], np.arange(len(reads)), np.zeros(len(reads), np.int64)
+
+
+@pytest.mark.parametrize("where", ["cpu", ("cpu", "cpu")], ids=["one", "mesh2"])
+def test_logl_pairs_rescues_low_pairs_in_f64(monkeypatch, where):
+    """A pair whose f32 log10 falls below F32_RESCUE_LOG10, or underflows,
+    takes the JAX f64 oracle's value; every other pair keeps its f32 value.
+    The whole result within 1e-5 of the JAX scan and Pallas paths, which
+    rescue the same pairs. On one CPU device and split over a CPU mesh of
+    two, one chunk each."""
+    reads, haps, pair_r, pair_h = _rescue_case()
+    with np.errstate(divide="ignore"):
+        f32 = _plain_log10(reads, haps, pair_r, pair_h)
+    rescued = ~np.isfinite(f32) | (f32 < pairhmm.F32_RESCUE_LOG10)
+    assert rescued.tolist() == [False, True, True, True]
+    assert not np.isfinite(f32[3])
+    exact = _f64(reads, haps, pair_r, pair_h)
+    assert np.all(f32 != exact)
+    chunks = []
+    orig = pc.pack_pairs
+    monkeypatch.setattr(pc, "pack_pairs", lambda r, h, pr, ph: (
+        chunks.append(len(pr)), orig(r, h, pr, ph))[1])
+    got = pairhmm.pairhmm_logl_pairs(reads, haps, pair_r, pair_h, device=where)
+    assert chunks == ([4] if where == "cpu" else [2, 2])
+    np.testing.assert_array_equal(got, np.where(rescued, exact, f32))
+    for jax_pairs in (jax_pairhmm._pairhmm_logl_pairs_scan,
+                      jax_pallas.pairhmm_pallas_pairs):
+        want = jax_pairs(reads, haps, pair_r, pair_h)
+        assert np.all(np.abs(got - want) < 1e-5), (jax_pairs, np.abs(got - want).max())
+
+
 @pytest.mark.parametrize("jax_path", ["scan", "pallas_interpret"])
 def test_long_reads_plain_matches_jax(jax_path):
     """Reads of 257-600 bases (the stripe path's): the plain version, the
@@ -147,7 +190,7 @@ def test_long_reads_plain_matches_jax(jax_path):
     pair here is rescued in f64, so the f32 values themselves are held."""
     reads, haps, pair_r, pair_h = _long_case()
     got = _plain_log10(reads, haps, pair_r, pair_h)
-    assert np.all(got >= pc.F32_RESCUE_LOG10)
+    assert np.all(got >= pairhmm.F32_RESCUE_LOG10)
     want = (jax_pairhmm._pairhmm_logl_pairs_scan if jax_path == "scan"
             else jax_pallas.pairhmm_pallas_pairs)(reads, haps, pair_r, pair_h)
     assert np.all(np.abs(got - want) < 1e-5), np.abs(got - want).max()
@@ -292,15 +335,8 @@ def test_launch_plan_stripe_warps_by_haplotype_length():
 
 
 def test_launch_plan_forced_path():
-    """A forced path: the CTA and stripe kernels take any read, the warp
-    kernel none over 256 bases; for short reads the CTA path keeps its own
-    shapes."""
-    assert pc.launch_plan(1, "cta") == ("cta", 32, 1)
-    assert pc.launch_plan(151, "cta") == ("cta", 160, 1)
-    assert pc.launch_plan(256, "cta") == ("cta", 256, 1)
-    assert pc.launch_plan(257, "cta") == ("cta", 160, 2)
-    assert pc.launch_plan(600, "cta") == ("cta", 160, 4)
-    assert pc.launch_plan(pc.MAX_READ_LEN, "cta") == ("cta", 256, 64)
+    """A forced path: the stripe kernel takes any read, the warp kernel
+    none over 256 bases; any other name raises."""
     assert pc.launch_plan(151, "stripe") == ("stripe", 32 * pc.STRIPE_WARPS_PER_CTA, 8)
     assert pc.launch_plan(151, "warp") == ("warp", 32 * pc.WARPS_PER_CTA, 5)
     with pytest.raises(ValueError):
@@ -309,7 +345,7 @@ def test_launch_plan_forced_path():
         pc.launch_plan(100, "tile")
 
 
-@pytest.mark.parametrize("path", ["warp", "stripe", "cta"])
+@pytest.mark.parametrize("path", ["warp", "stripe"])
 def test_forced_path_on_cpu_is_plain(path):
     """On the CPU the forced entry runs the plain version and counts no
     launch; a batch the forced path cannot take raises."""

@@ -256,7 +256,7 @@ def _pairhmm_inputs():
 def test_pairhmm_sharded_matches_unsharded_and_jax(jmesh8, mesh):
     reads, haps = _pairhmm_inputs()
     got = pairhmm_sharded(mesh, reads, haps)
-    assert pairhmm._MESH[0] is None  # the session property is restored
+    assert pairhmm._MESH[0] is None  # the session property is untouched
     whole = pairhmm.pairhmm_f32_batch(reads, haps, device="cpu")
     np.testing.assert_array_equal(got, whole)
     want = jpairhmm_sharded(jmesh8, reads, haps)
